@@ -1,0 +1,27 @@
+"""Device selection helpers."""
+
+import torch
+
+__all__ = ["require_cuda", "as_dtype"]
+
+
+def require_cuda():
+    """The CUDA device, or RuntimeError when no card is visible. Measurement
+    paths call this instead of falling back to the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def as_dtype(dtype):
+    """torch float dtype from a torch dtype, a numpy dtype or its name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    import numpy as np
+
+    name = np.dtype(dtype).name
+    if name == "float32":
+        return torch.float32
+    if name == "float64":
+        return torch.float64
+    raise ValueError(f"unsupported dtype {dtype!r}: float32 or float64")
