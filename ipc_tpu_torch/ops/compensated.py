@@ -18,6 +18,7 @@ __all__ = [
     "quick_two_sum",
     "df_sum",
     "df_add",
+    "df_scale",
     "df_leq",
     "df_to_float",
 ]
@@ -64,6 +65,12 @@ def df_add(a, b):
     s, e = two_sum(a_hi, b_hi)
     e = e + (a_lo + b_lo)
     return quick_two_sum(s, e)
+
+
+def df_scale(a, k):
+    """Scale (hi, lo) by a plain scalar k; each product rounds once (no
+    two-prod), renormalized for df_leq."""
+    return quick_two_sum(a[0] * k, a[1] * k)
 
 
 def df_leq(a, b):

@@ -1,9 +1,18 @@
-"""Static-topology scatter-add as a precomputed gather-sum.
+"""Scatter-add as a gather-sum over a table of source rows.
 
 Port of ipc_tpu/ops/scatter.py. For a fixed index list (the mesh's tet
 corners, the vertex->aggregate map of the coarse preconditioner) the table
 of source rows per output row is built once on the host, and every
 accumulation is one gather plus a dense sum over the table's second axis.
+
+Self-contact needs the same for DYNAMIC index sets: the active pair
+stencils change every Newton iteration, and the lagged friction pairs every
+step. `make_dynamic_gather_sum` builds the table on the device (stable sort
+of the ids, bincount, rank within each segment, one host read of the
+largest multiplicity) once per index set; the barrier gradient, the pair
+block Hv of every PCG iteration, the diagonal blocks and the coarse pair
+cells then reuse it. Rows keep ascending position order within each
+segment: the order of the updates JAX's `.at[ids].add` receives.
 
 On CUDA this is the port's deterministic vertex accumulation: no float
 atomics (`index_add_` with colliding indices sums in a run-dependent order),
@@ -14,7 +23,7 @@ ported (multi-GPU is the last slice).
 import numpy as np
 import torch
 
-__all__ = ["gather_table", "make_gather_sum"]
+__all__ = ["gather_table", "make_gather_sum", "make_dynamic_gather_sum"]
 
 
 def gather_table(ids, n_out):
@@ -52,4 +61,48 @@ def make_gather_sum(ids, n_out, device="cpu"):
         return ext[table].sum(dim=1)
 
     apply.table = table
+    return apply
+
+
+def make_dynamic_gather_sum(ids, n_out):
+    """Gather-sum over a device index tensor ids (N,) int64 in [0, n_out).
+
+    Returns `apply(vals)`: (N, ...) -> (n_out, ...), the per-id sums. The
+    table covers only the ids that occur (`apply.rows`, ascending, unique):
+    rows no id touches are exact zeros, written with an `index_copy` over
+    unique rows. Building it reads two numbers back to the host in one sync
+    (row count, largest multiplicity): `apply.host_syncs` is 1, or 0 for
+    an empty set."""
+    device = ids.device
+    N = int(ids.shape[0])
+    if N == 0:
+        def apply(vals):
+            return torch.zeros((n_out,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                               device=device)
+
+        apply.rows = ids
+        apply.host_syncs = 0
+        return apply
+    sorted_ids, order = torch.sort(ids, stable=True)
+    pos = torch.arange(N, device=device)
+    is_start = torch.ones((N,), dtype=torch.bool, device=device)
+    is_start[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    seg = torch.cumsum(is_start.to(torch.int64), dim=0) - 1  # segment per position
+    first = torch.cummax(torch.where(is_start, pos, torch.zeros_like(pos)), dim=0).values
+    rank = pos - first
+    n_rows, D = torch.stack([seg[-1] + 1, rank.max() + 1]).tolist()  # the host read
+    rows = sorted_ids[torch.searchsorted(seg, torch.arange(n_rows, device=device))]
+    table = torch.full((n_rows, D), N, dtype=torch.int64, device=device)
+    table[seg, rank] = order  # (seg, rank) pairs are unique
+
+    def apply(vals):
+        pad = torch.zeros((1,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                          device=vals.device)
+        summed = torch.cat([vals, pad], dim=0)[table].sum(dim=1)
+        out = torch.zeros((n_out,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                          device=vals.device)
+        return out.index_copy(0, rows, summed)
+
+    apply.rows = rows
+    apply.host_syncs = 1
     return apply

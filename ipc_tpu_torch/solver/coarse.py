@@ -11,19 +11,22 @@ the same SPD blocks the operator multiplies with, then inverted densely
 leaves to XLA).
 
 Determinism on CUDA: every accumulation with colliding indices goes through
-a static gather-sum table (ops/scatter.py) or the tet family's sort +
-cumsum segment sum, never `index_add_` (float atomics). That covers the
-vertex->aggregate restriction (mass diagonal, `precond_term`) and the
-per-vertex block families of slice 1 (half-space barrier and friction).
+a gather-sum table (ops/scatter.py) or the tet family's sort + cumsum
+segment sum, never `index_add_` (float atomics). That covers the
+vertex->aggregate restriction (mass diagonal, `precond_term`), the
+per-vertex block families (half-space barrier and friction) and the pair
+families (k = 4: self-contact barrier and friction), whose (C*C) cells
+change with every active set and get a table built on the device
+(`make_dynamic_gather_sum`; its host reads add to `assemble.host_syncs`).
 
-Not ported yet: pair families (k > 1: self-contact, slice 2) and the
-`scalar_contribs` trace path, which no caller of slice 1 reaches.
+Not ported yet: the `scalar_contribs` trace path, which no caller of the
+production step reaches.
 """
 
 import numpy as np
 import torch
 
-from ipc_tpu_torch.ops.scatter import make_gather_sum
+from ipc_tpu_torch.ops.scatter import make_dynamic_gather_sum, make_gather_sum
 
 __all__ = ["build_aggregates", "make_coarse_assembler"]
 
@@ -69,8 +72,9 @@ def make_coarse_assembler(agg, C, dbc_mask, dtype, tets=None):
     """Returns (assemble, precond_term).
 
     assemble(mass, contributions, tet_H=None) -> (3C,3C) inverse of the
-    Galerkin coarse matrix. `contributions` is a list of (vids (N,1),
-    H (N,3,3)) per-vertex block families; `tet_H` the (T,12,12) family of
+    Galerkin coarse matrix. `contributions` is a list of (vids (N,k),
+    H (N,3k,3k)) block families: per-vertex (k=1) or pairs (k=4); `tet_H`
+    the (T,12,12) family of
     the `tets` given here (sort + cumsum segment sum, as in the JAX
     package). precond_term(Ainv, r) -> P A_c^-1 P^T r."""
     agg_np = np.asarray(agg).astype(np.int64)
@@ -111,9 +115,6 @@ def make_coarse_assembler(agg, C, dbc_mask, dtype, tets=None):
     def vertex_family(vids, H):
         """Per-vertex blocks (k=1) summed per aggregate: the rows land on
         the coarse diagonal cells (agg_v, agg_v)."""
-        if vids.shape[1] != 1:
-            raise NotImplementedError(
-                "pair block families (self-contact) arrive with slice 2")
         v = vids[:, 0]
         rows = _corner_pair_blocks(H, 1, free[vids])  # (N,3,3)
         # family vids are unique vertices, so this index_add_ has one
@@ -122,13 +123,27 @@ def make_coarse_assembler(agg, C, dbc_mask, dtype, tets=None):
         per_vert.index_add_(0, v, rows)
         return gsum_agg(per_vert)  # (C,3,3)
 
+    def pair_family(vids, H):
+        """(C*C,3,3) Galerkin cells of k-vertex blocks (N,3k,3k): corner
+        pair (a,b) lands on cell (agg_a, agg_b)."""
+        k = vids.shape[1]
+        rows = _corner_pair_blocks(H, k, free[vids])
+        ca = agg_t[vids]
+        cells = (ca[:, :, None] * C + ca[:, None, :]).reshape(-1)
+        gsum = make_dynamic_gather_sum(cells, C * C)
+        assemble.host_syncs += gsum.host_syncs
+        return gsum(rows)
+
     def assemble(mass, contributions, tet_H=None):
         A = torch.zeros((C * C, 3, 3), dtype=dtype, device=device)
         # lumped mass on the diagonal (free vertices only)
         m_c = gsum_agg(mass * free)
         A[diag_cells] = A[diag_cells] + m_c[:, None, None] * eye3[None]
         for vids, H in contributions:
-            A[diag_cells] = A[diag_cells] + vertex_family(vids, H)
+            if vids.shape[1] == 1:
+                A[diag_cells] = A[diag_cells] + vertex_family(vids, H)
+            elif vids.shape[0]:
+                A = A + pair_family(vids, H)
         A = A.reshape(C, C, 3, 3)
         if tet_coarse is not None and tet_H is not None:
             A = A + tet_coarse(tet_H)
@@ -139,6 +154,8 @@ def make_coarse_assembler(agg, C, dbc_mask, dtype, tets=None):
         tr = torch.trace(Ad) / (3 * C)
         Ad = Ad + (1e-8 * tr + 1e-30) * torch.eye(3 * C, dtype=dtype, device=device)
         return torch.linalg.inv(Ad)
+
+    assemble.host_syncs = 0
 
     def precond_term(Ainv, r):
         rc = gsum_agg(r * free[:, None])

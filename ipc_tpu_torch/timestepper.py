@@ -3,12 +3,12 @@
 Port of the parts of ipc_tpu/timestepper.py that the production step
 (jit_step.make_step) reads: `SimParams` and `SimState` (:55-137), the
 scalar setup of `IPCStepper.__init__` (:171-245), `suggest_kappa`
-(:332-340, a host float), the half-space friction terms (:776-848) and
-`initial_state` (:910-913).
+(:332-340, a host float), the half-space and self-contact friction terms
+(:776-848) and `initial_state` (:910-913).
 
 Not ported yet: the host-orchestrated `IPCStepper.step` / `_solve_sub_ip`
-path (dHat homotopy, outer friction loop, moving-DBC sub-solve), the
-kappa helpers it uses, and self-contact friction (slice 2).
+path (dHat homotopy, outer friction loop, moving-DBC sub-solve) and the
+kappa helpers it uses.
 """
 
 import math
@@ -16,6 +16,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ipc_tpu_torch.contact import selfcollision as SC
 
 __all__ = ["SimParams", "SimState", "IPCStepper"]
 
@@ -117,7 +119,8 @@ class IPCStepper:
             )
         else:
             self.voxel = float(np.sqrt(meta.bbox_diag2)) / 3.0
-        self._solve_fric = any(hs.params.friction > 0.0 for hs in self.halfspaces)
+        self._solve_fric = any(hs.params.friction > 0.0 for hs in self.halfspaces) or (
+            self.sc is not None and self.sc.friction > 0.0)
 
     def suggest_kappa(self, dHat):
         """Host-float C2 barrier Hessian at d = 1e-16 bboxDiag^2 (exact f64
@@ -128,7 +131,8 @@ class IPCStepper:
         return self.p.kappa_min_mult * self.avg_node_mass / (4e-16 * self.bbox_diag2 * H_b)
 
     # ------------------------------------------------------------------
-    # lagged half-space friction (fric is a dict or None)
+    # lagged half-space and self-contact friction (fric is a dict or None;
+    # fric["sc"] is SelfContact.capture_friction's state or None)
     # ------------------------------------------------------------------
 
     def _hs_friction(self, fric):
@@ -144,6 +148,8 @@ class IPCStepper:
         x_sv = x[self._sv]
         for hs, st in self._hs_friction(fric):
             E = E + hs.friction_energy(x_sv, fric["anchor"][self._sv], st, fric["eps2"])
+        if fric.get("sc") is not None:
+            E = E + SC.friction_energy(fric["sc"], x, fric["anchor"], fric["eps2"], 1.0)
         return E
 
     def _friction_gradient(self, x, fric):
@@ -154,10 +160,16 @@ class IPCStepper:
         for hs, st in self._hs_friction(fric):
             g = g.index_add(0, self._sv, hs.friction_grad_sv(
                 x_sv, fric["anchor"][self._sv], st, fric["eps2"]))
+        if fric.get("sc") is not None:
+            fr = fric["sc"]
+            g = g + SC.friction_gradient(fr, x, fric["anchor"], fric["eps2"], 1.0,
+                                         fr["vert_sum"])
         return g
 
     def _friction_hessians(self, x, fric):
-        """List of (vids (Sv,1), H (Sv,3,3)) per-vertex friction blocks.
+        """List of (vids (N,k), H (N,3k,3k)) friction block families: one
+        (Sv,1) family of 3x3 blocks per frictional half-space, then the
+        self-contact pairs' (C,4) family of 12x12 blocks.
 
         The JAX package wraps each half-space's (Sv,3,3) blocks as (Sv,12,12)
         blocks on stencils (v,0,0,0) that are zero outside the (0,0) block;
@@ -170,6 +182,10 @@ class IPCStepper:
         for hs, st in self._hs_friction(fric):
             H3 = hs.friction_hess_blocks_sv(x_sv, fric["anchor"][self._sv], st, fric["eps2"])
             out.append((self._sv[:, None], H3))
+        if fric.get("sc") is not None:
+            fr = fric["sc"]
+            out.append((fr["vids"], SC.friction_hessian_blocks(
+                fr, x, fric["anchor"], fric["eps2"], 1.0)))
         return out
 
     def initial_state(self, x0=None, v0=None):

@@ -18,6 +18,7 @@ the Newton loop (steps 0 and 5 of 6).
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ import torch
 import __graft_entry__ as ge
 from ipc_tpu.jit_step import make_jit_step
 from ipc_tpu.timestepper import IPCStepper as JaxStepper, SimParams as JaxParams
+from ipc_tpu_torch.contact.pipeline import SelfContact
 from ipc_tpu_torch.convert import state_from_numpy, state_to_numpy
 from ipc_tpu_torch.jit_step import make_step
 from ipc_tpu_torch.scenes import build_scene
@@ -113,7 +115,7 @@ def test_step_is_deterministic_and_dtype_clean():
     dict(params=SimParams(time_integration="NM")),
     dict(params=SimParams(damping_stiff=0.1)),
     dict(params=SimParams(linsys="dense")),
-    dict(sc=object()),
+    dict(sc=SimpleNamespace(ccd_method="ti")),
     dict(script=object()),
     dict(burst=4),
 ])
@@ -130,19 +132,29 @@ def test_make_step_rejects_outside_the_slice(change):
 
 
 def test_self_contact_scene_not_yet_ported():
-    with pytest.raises(NotImplementedError):
-        build_scene(2, torch.float64, "cpu", with_contact=True)
+    """The bench scene's self-contact is ported; what waits for later
+    slices (Tight-Inclusion CCD, per-vertex friction of kinematic objects)
+    is refused, not silently replaced."""
+    st = build_scene(2, torch.float64, "cpu", with_contact=True)
+    assert st.sc is not None and st.sc.broadphase == "dense"
+    for kwargs in (dict(ccd_method="ti"), dict(vert_mu=np.ones(1))):
+        with pytest.raises(NotImplementedError):
+            SelfContact(st.mesh, st.meta, friction=0.1, **kwargs)
 
 
 def test_port_never_imports_jax():
+    # jax is made unimportable, then a ground step and a self-contact step
     code = (
         "import sys\n"
+        "sys.modules['jax'] = None\n"
         "import ipc_tpu_torch\n"
         "from ipc_tpu_torch.scenes import build_scene\n"
         "from ipc_tpu_torch.jit_step import make_step\n"
-        "st = build_scene(2, 'float64', 'cpu')\n"
-        "s, stats = make_step(st)(st.initial_state())\n"
-        "assert stats.newton_iters > 0\n"
+        "for contact in (False, True):\n"
+        "    st = build_scene(2, 'float64', 'cpu', with_contact=contact)\n"
+        "    s, stats = make_step(st)(st.initial_state())\n"
+        "    assert stats.newton_iters > 0 and (st.sc is not None) == contact\n"
+        "sys.modules.pop('jax')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
