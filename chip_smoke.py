@@ -9,9 +9,15 @@ and ends the run with a non-zero exit code (nothing is caught):
   1. device: the card's name and `nvidia-smi` name / power limit;
   2. build: the CUDA kernels from csrc/ (nvcc, sm_90a) into build/kernels/;
   3. kernel vs plain: tet_hv against its plain PyTorch version on the card
-     at the scene's shapes (n_cells 8 and 20; float32 and float64), with
-     tolerances 1e-5 (f32) / 1e-12 (f64) x the plain result's max |.|,
-     bitwise-equal repeats, and CUDA-event times (median of 20);
+     at the scene's shapes (n_cells 8 and 20: 6,144 and 96,000 tets;
+     float32 and float64), with tolerances 1e-5 (f32) / 1e-12 (f64) x the
+     plain result's max |.| and bitwise-equal repeats; device times
+     (ipc_tpu_torch/hv_timing.py: CUDA events, median of 20, L2 flushed)
+     of the kernel, the plain version and the library yardstick (cuSPARSE
+     SpMV through a torch CSR matrix assembled from the same H, which must
+     agree within the same tolerance), the assembly's time, the bound
+     (bytes at 3.35 TB/s) with the kernel's share of it, and each device
+     kernel's time per call (torch.profiler);
   4. ground path: build_scene(n_cells=20, float32, "cuda") -> make_step for
      10 steps (96,000 tets; ground contact and friction, no self-contact).
      Counts are zeroed just before: the Hv kernel must have launched once
@@ -47,29 +53,10 @@ phase 1 and prints neither.
 """
 
 import json
-import statistics
 import subprocess
 import time
 
 import numpy as np
-
-
-def time_ms(fn, reps=20):
-    """Median milliseconds of fn() on the current stream (CUDA events)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def check(cond, what):
@@ -107,40 +94,26 @@ def phase_build():
 def phase_kernel_vs_plain(device):
     import torch
 
-    from ipc_tpu_torch.ops.tet_hv import make_tet_hv_table, tet_hv, tet_hv_reference
-    from ipc_tpu_torch.scenes import build_scene
+    from ipc_tpu_torch.hv_timing import measure
 
-    tol = {torch.float32: 1e-5, torch.float64: 1e-12}
     records = {}
     for n_cells in (8, 20):
-        st = build_scene(n_cells, torch.float64, "cpu")
-        tets = st.mesh.tets.numpy()
-        n_verts = int(st.mesh.x_rest.shape[0])
-        table = make_tet_hv_table(tets, n_verts, device)
-        rng = np.random.default_rng(n_cells)
-        M = rng.normal(size=(tets.shape[0], 12, 12))
-        H_np = M @ np.swapaxes(M, 1, 2) / 12.0  # SPD-like blocks
-        v_np = rng.normal(size=(n_verts, 3))
-        v_np[rng.uniform(size=n_verts) < 0.2] = 0.0  # DBC rows of v
         for dtype in (torch.float32, torch.float64):
-            H = torch.as_tensor(H_np, device=device).to(dtype).contiguous()
-            v = torch.as_tensor(v_np, device=device).to(dtype).contiguous()
-            out = tet_hv(H, v, table)
-            again = tet_hv(H, v, table)
-            plain = tet_hv_reference(H, table.tets, v, table.gsum)
-            torch.cuda.synchronize()
-            err = (out - plain).abs().max().item()
-            scale = plain.abs().max().item()
-            bitwise = bool(torch.equal(out, again))
-            ms = time_ms(lambda: tet_hv(H, v, table))
-            plain_ms = time_ms(lambda: tet_hv_reference(H, table.tets, v, table.gsum))
-            name = str(dtype).replace("torch.", "")
-            print(f"[kernel] tet_hv n_cells={n_cells} tets={tets.shape[0]} verts={n_verts} "
-                  f"{name}: max_abs_err={err:.3e} (limit {tol[dtype] * scale:.3e}) "
-                  f"bitwise_repeat={bitwise} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-            check(err <= tol[dtype] * scale, f"tet_hv {name} n_cells={n_cells} within tolerance")
-            check(bitwise, f"tet_hv {name} n_cells={n_cells} bitwise repeatable")
-            records[(n_cells, name)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            r = measure(n_cells, dtype, device)
+            print(f"[kernel] tet_hv n_cells={n_cells} tets={r['tets']} verts={r['verts']} "
+                  f"D={r['D']} {r['dtype']}: max_abs_err={r['max_abs_err']:.3e} (limit "
+                  f"{r['limit']:.3e}) bitwise_repeat={r['bitwise_repeat']} "
+                  f"kernel_ms={r['kernel_ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+                  f"library_ms={r['library_ms']:.5f} (library_err={r['library_err']:.3e}, "
+                  f"nnz={r['nnz']}, assembly_ms={r['assembly_ms']:.3f}) bytes={r['bytes']} "
+                  f"bound_us={r['bound_us']:.3f} ({r['bound_by']}) "
+                  f"share_of_bound={r['share_of_bound']:.4f} empty_ms={r['empty_ms']:.5f} "
+                  f"split_us={json.dumps(r['split_us'])}")
+            what = f"tet_hv {r['dtype']} n_cells={n_cells}"
+            check(r["max_abs_err"] <= r["limit"], f"{what} within tolerance")
+            check(r["bitwise_repeat"], f"{what} bitwise repeatable")
+            check(r["library_err"] <= r["limit"], f"{what}: the yardstick computes the same map")
+            records[(n_cells, r["dtype"])] = r
     return records
 
 
@@ -421,10 +394,13 @@ def main():
     run("bench_timing", phase_bench_timing, device)
     run("contact_reference", phase_contact_reference, device)
     print(f"[phase] total {sum(s for _, s in phases):.1f} s")
-    main_rec = records[(20, "float32")]  # the main path's shape and dtype
+    r = records[(20, "float32")]  # the main path's shape and dtype
     print(json.dumps({"kernels": [dict(
         name="tet_hv", route="cuda", source="ipc_tpu_torch/csrc/tet_hv.cu",
-        replaces="ipc_tpu/ops/pallas_hv.py:107", launches=launches, **main_rec,
+        replaces="ipc_tpu/ops/pallas_hv.py:107", launches=launches,
+        max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"], library_ms=r["library_ms"],
+        bound_us=r["bound_us"], share_of_bound=r["share_of_bound"],
     )]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -76,8 +76,8 @@ def load_kernels():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name in ("ipc_tet_hv_f32", "ipc_tet_hv_f64"):
             fn = getattr(lib, name)
-            # H, v, tets, inc, n_verts, D, n_rows, out, stream
-            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr]
+            # H, v, tets, inc, n_tets, n_verts, D, rows (scratch), out, stream
+            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr]
             fn.restype = i32
         _lib = lib
     return _lib

@@ -7,7 +7,7 @@ The JAX package's MeshData / SimState fields go through numpy arrays
 import numpy as np
 import torch
 
-from ipc_tpu_torch.device import as_dtype
+from ipc_tpu_torch.device import as_dtype, resolve_device
 from ipc_tpu_torch.mesh import MESH_FIELDS, mesh_from_arrays
 from ipc_tpu_torch.timestepper import SimState
 
@@ -16,19 +16,21 @@ __all__ = ["mesh_from_numpy", "state_from_numpy", "state_to_numpy"]
 STATE_ARRAYS = ("x", "x_prev", "v", "a")
 
 
-def mesh_from_numpy(arrays, device="cpu", dtype=torch.float64):
+def mesh_from_numpy(arrays, device=None, dtype=torch.float64):
     """MeshData from a dict of numpy arrays named like its fields (the JAX
-    MeshData fields)."""
+    MeshData fields), on `device` (the card when None, "cpu" for the CPU)."""
     missing = [n for n in MESH_FIELDS if n not in arrays]
     if missing:
         raise KeyError(f"mesh arrays lack {missing}")
-    return mesh_from_arrays(arrays, device, as_dtype(dtype))
+    return mesh_from_arrays(arrays, resolve_device(device), as_dtype(dtype))
 
 
-def state_from_numpy(arrays, device="cpu", dtype=torch.float64):
+def state_from_numpy(arrays, device=None, dtype=torch.float64):
     """SimState from a dict with x, x_prev, v, a ((V,3) arrays) and
-    optionally t and step."""
+    optionally t and step, on `device` (the card when None, "cpu" for the
+    CPU)."""
     dtype = as_dtype(dtype)
+    device = resolve_device(device)
     conv = {k: torch.as_tensor(np.array(arrays[k], np.float64), device=device).to(dtype)
             for k in STATE_ARRAYS}
     return SimState(**conv, t=float(np.asarray(arrays.get("t", 0.0))),

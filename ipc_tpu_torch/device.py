@@ -2,7 +2,7 @@
 
 import torch
 
-__all__ = ["require_cuda", "as_dtype"]
+__all__ = ["require_cuda", "resolve_device", "as_dtype"]
 
 
 def require_cuda():
@@ -11,6 +11,13 @@ def require_cuda():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device=None):
+    """The device an entry point runs on: the card when `device` is None
+    (RuntimeError without one), else torch.device(device). CPU callers pass
+    "cpu" explicitly."""
+    return require_cuda() if device is None else torch.device(device)
 
 
 def as_dtype(dtype):

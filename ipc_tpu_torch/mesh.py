@@ -14,6 +14,8 @@ from dataclasses import dataclass, field, fields
 import numpy as np
 import torch
 
+from ipc_tpu_torch.device import resolve_device
+
 __all__ = [
     "MeshData",
     "MeshMeta",
@@ -187,14 +189,14 @@ def build_mesh(
     vert_comp=None,
     comp_ranges=None,
     dtype=torch.float64,
-    device="cpu",
+    device=None,
 ):
     """Build MeshData + MeshMeta from raw vertices/tets (host numpy, then
-    one copy to `device`). Defaults mirror the reference scene defaults
-    (density 1000, YM 1e5, PR 0.4)."""
+    one copy to `device`: the card when None, "cpu" for the CPU). Defaults
+    mirror the reference scene defaults (density 1000, YM 1e5, PR 0.4)."""
     arrays, meta = mesh_arrays(V, T, density, ym, pr, dbc_mask, vert_comp,
                                comp_ranges)
-    return mesh_from_arrays(arrays, device, dtype), meta
+    return mesh_from_arrays(arrays, resolve_device(device), dtype), meta
 
 
 def merge_meshes(parts):

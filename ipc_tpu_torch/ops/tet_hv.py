@@ -7,11 +7,15 @@ Replaces ipc_tpu/ops/pallas_hv.py (the TPU window kernel) plus the
              H_t[3c:3c+3, :] . [v_i0; v_i1; v_i2; v_i3]
 
 `tet_hv` launches the CUDA kernel (csrc/tet_hv.cu) for CUDA tensors and
-counts each launch in `tet_hv.launches`. For CPU tensors, and only there,
-it computes the same sum with `tet_hv_reference`, the plain PyTorch
-version (the JAX package's jnp route: gather, einsum, gather-sum). A CUDA
-tensor never reaches the plain version: the kernel launches or the call
-raises.
+counts each call in `tet_hv.launches`. The kernel runs in two device
+launches: pass A writes the per-corner rows H_t . v4_t to a (4T,3) scratch
+(row 4t + c, the layout of the plain version's `hv.reshape(-1, 3)`), pass
+B sums each vertex's rows in the table's order. One call is one operator
+application, so `launches` counts calls, not device launches. For CPU
+tensors, and only there, it computes the same sum with `tet_hv_reference`,
+the plain PyTorch version (the JAX package's jnp route: gather, einsum,
+gather-sum). A CUDA tensor never reaches the plain version: the kernel
+launches or the call raises.
 """
 
 from dataclasses import dataclass
@@ -21,7 +25,10 @@ import torch
 
 from ipc_tpu_torch.ops.scatter import gather_table, make_gather_sum
 
-__all__ = ["TetHvTable", "make_tet_hv_table", "tet_hv", "tet_hv_reference"]
+__all__ = ["TetHvTable", "make_tet_hv_table", "tet_hv", "tet_hv_reference", "tet_rows_reference"]
+
+# The kernel's bulk copies move H and tets in 16-byte units.
+_ALIGN = 16
 
 
 @dataclass(frozen=True)
@@ -57,11 +64,16 @@ def make_tet_hv_table(tets, n_verts, device="cpu"):
     )
 
 
+def tet_rows_reference(H, tets, v):
+    """Plain version of pass A: the (4T,3) per-corner rows, row 4t + c =
+    H_t[3c:3c+3, :] . v4_t."""
+    v4 = v[tets].reshape(-1, 12)
+    return torch.einsum("cij,cj->ci", H, v4).reshape(-1, 3)
+
+
 def tet_hv_reference(H, tets, v, gsum):
     """Plain version: v[tets] -> per-tet 12x12 matvec -> gather-sum."""
-    v4 = v[tets].reshape(-1, 12)
-    hv = torch.einsum("cij,cj->ci", H, v4)
-    return gsum(hv.reshape(-1, 3))
+    return gsum(tet_rows_reference(H, tets, v))
 
 
 def _check(H, v, table):
@@ -76,6 +88,24 @@ def _check(H, v, table):
         raise ValueError(f"tet_hv: H on {H.device}, v on {v.device}")
 
 
+def _launch_args(H, v, table):
+    """The kernel's size arguments (n_tets, n_verts, D) and its rows scratch,
+    (4T,3) like H. Raises for inputs the kernel does not take: tables on
+    another device, non-contiguous H or v, H or tets not 16-byte aligned."""
+    for name, t in (("tets32", table.tets32), ("inc", table.inc)):
+        if t.device != H.device:
+            raise ValueError(f"tet_hv: table.{name} on {t.device}, H on {H.device}")
+    if not (H.is_contiguous() and v.is_contiguous()):
+        raise ValueError("tet_hv: H and v must be contiguous")
+    for name, t in (("H", H), ("tets32", table.tets32)):
+        if t.data_ptr() % _ALIGN:
+            raise ValueError(f"tet_hv: {name} must be {_ALIGN}-byte aligned for the bulk copies")
+    n_tets = int(table.tets32.shape[0])
+    V, D = table.inc.shape
+    rows = torch.empty((4 * n_tets, 3), dtype=H.dtype, device=H.device)
+    return (n_tets, int(V), int(D)), rows
+
+
 def tet_hv(H, v, table):
     """(V,3) per-vertex sum of the per-tet products H_t . v4_t.
 
@@ -86,19 +116,14 @@ def tet_hv(H, v, table):
         return tet_hv_reference(H, table.tets, v, table.gsum)
     if H.device.type != "cuda":
         raise ValueError(f"tet_hv: unsupported device {H.device}")
-    for name, t in (("tets32", table.tets32), ("inc", table.inc)):
-        if t.device != H.device:
-            raise ValueError(f"tet_hv: table.{name} on {t.device}, H on {H.device}")
-    if not (H.is_contiguous() and v.is_contiguous()):
-        raise ValueError("tet_hv: H and v must be contiguous")
+    (n_tets, n_verts, D), rows = _launch_args(H, v, table)
     from ipc_tpu_torch.build import load_kernels
 
     lib = load_kernels()
     fn = lib.ipc_tet_hv_f32 if H.dtype == torch.float32 else lib.ipc_tet_hv_f64
     out = torch.empty_like(v)
-    V, D = table.inc.shape
     err = fn(H.data_ptr(), v.data_ptr(), table.tets32.data_ptr(), table.inc.data_ptr(),
-             int(V), int(D), int(table.tets32.shape[0]) * 4, out.data_ptr(),
+             n_tets, n_verts, D, rows.data_ptr(), out.data_ptr(),
              torch.cuda.current_stream(H.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tet_hv: CUDA launch failed with error {err}")

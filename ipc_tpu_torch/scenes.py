@@ -9,20 +9,22 @@ family, and the scene bench.py runs.
 
 import numpy as np
 
-from ipc_tpu.models.primitives import box_grid  # numpy only, no jax
 from ipc_tpu_torch.contact.halfspace import HalfSpace, HalfSpaceParams
-from ipc_tpu_torch.device import as_dtype
+from ipc_tpu_torch.device import as_dtype, resolve_device
 from ipc_tpu_torch.contact.pipeline import SelfContact
 from ipc_tpu_torch.mesh import build_mesh, merge_meshes
+from ipc_tpu_torch.models.primitives import box_grid
 from ipc_tpu_torch.timestepper import IPCStepper, SimParams
 
 __all__ = ["build_scene"]
 
 
-def build_scene(n_cells=6, dtype="float32", device="cpu", with_contact=False):
-    """IPCStepper of the two-box scene on `device`: ground contact, and
-    self-contact between the boxes when with_contact (the bench scene,
-    __graft_entry__._build_scene's default)."""
+def build_scene(n_cells=6, dtype="float32", device=None, with_contact=False):
+    """IPCStepper of the two-box scene on `device` (the card when None; pass
+    "cpu" for the CPU): ground contact, and self-contact between the boxes
+    when with_contact (the bench scene, __graft_entry__._build_scene's
+    default)."""
+    device = resolve_device(device)
     V1, T1 = box_grid(n_cells, n_cells, n_cells)
     V1 = V1 + np.array([0.0, 0.01, 0.0])
     V2, T2 = box_grid(n_cells, n_cells, n_cells)

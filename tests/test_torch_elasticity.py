@@ -36,7 +36,7 @@ def meshes():
     jm, jmeta = j_build_mesh(V, T, vert_comp=comp, comp_ranges=ranges, dtype=np.float64)
     V2, T2, comp2, ranges2 = t_merge(_two_boxes())
     tm, tmeta = t_build_mesh(V2, T2, vert_comp=comp2, comp_ranges=ranges2,
-                             dtype=torch.float64)
+                             dtype=torch.float64, device="cpu")
     return jm, jmeta, tm, tmeta
 
 
@@ -54,7 +54,7 @@ def test_build_mesh_parity(meshes):
                 "comp_ranges"):
         assert getattr(tmeta, key) == getattr(jmeta, key), key
     # the converter rebuilds the same mesh from the JAX arrays
-    conv = mesh_from_numpy({n: np.asarray(getattr(jm, n)) for n in MESH_FIELDS})
+    conv = mesh_from_numpy({n: np.asarray(getattr(jm, n)) for n in MESH_FIELDS}, "cpu")
     for name in MESH_FIELDS:
         assert torch.equal(getattr(conv, name), getattr(tm, name)), name
 

@@ -140,7 +140,7 @@ def test_coarse_assembler_matches():
     dbc = np.zeros(len(V), bool)
     dbc[:7] = True
     jm, _ = j_build_mesh(V, T, dbc_mask=dbc, dtype=np.float64)
-    tm, _ = t_build_mesh(V, T, dbc_mask=dbc, dtype=torch.float64)
+    tm, _ = t_build_mesh(V, T, dbc_mask=dbc, dtype=torch.float64, device="cpu")
     agg, C = JCO.build_aggregates(np.asarray(jm.x_rest), size=8)
     agg_t, C_t = TCO.build_aggregates(tm.x_rest.numpy(), size=8)
     np.testing.assert_array_equal(agg, agg_t)

@@ -15,6 +15,7 @@ the Newton loop (steps 0 and 5 of 6).
   rounding, so near the f32 noise floor an acceptance can flip.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -143,10 +144,12 @@ def test_self_contact_scene_not_yet_ported():
 
 
 def test_port_never_imports_jax():
-    # jax is made unimportable, then a ground step and a self-contact step
+    # jax and the JAX package are made unimportable, then a ground step and
+    # a self-contact step
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['ipc_tpu'] = None\n"
         "import ipc_tpu_torch\n"
         "from ipc_tpu_torch.scenes import build_scene\n"
         "from ipc_tpu_torch.jit_step import make_step\n"
@@ -155,7 +158,9 @@ def test_port_never_imports_jax():
         "    s, stats = make_step(st)(st.initial_state())\n"
         "    assert stats.newton_iters > 0 and (st.sc is not None) == contact\n"
         "sys.modules.pop('jax')\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "sys.modules.pop('ipc_tpu')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ipc_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'ipc_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -164,6 +169,30 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def _imported_modules(path):
+    """Top-level names of every module `path` imports (absolute imports)."""
+    tree = ast.parse(open(path).read(), filename=path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return {n.split(".")[0] for n in names}
+
+
+def test_port_sources_import_neither_jax_nor_ipc_tpu():
+    """Static check over every source of the port and chip_smoke.py, imports
+    inside functions included."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "ipc_tpu_torch")):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 30
+    bad = {os.path.relpath(p, ROOT): sorted(_imported_modules(p) & {"jax", "jaxlib", "ipc_tpu"})
+           for p in paths}
+    assert not {p: m for p, m in bad.items() if m}
 
 
 def test_chip_smoke_refuses_without_cuda():
