@@ -1,22 +1,31 @@
-"""Continuous collision detection: additive CCD (ACCD), batched over pairs.
+"""Continuous collision detection, batched over pairs: additive CCD (ACCD)
+and the Tight-Inclusion-style interval CCD.
 
-Port of ipc_tpu/contact/ccd.py:27-80 (Li, Kaufman, Jiang 2021, Codimensional
-IPC, supplement). Each stencil advances its time by steps that provably
-cannot close more than the remaining gap and stops leaving
-`slackness * d0` of it. The JAX package runs a `fori_loop` of `max_iter`
-iterations with a `done` mask; the port runs the same fixed count over all
-pairs at once, with no host read.
+Port of ipc_tpu/contact/ccd.py:27-80, 115-214.
 
-Not ported yet: the Tight-Inclusion interval variant (`ti_pt`, `ti_ee`,
-`ccd_method="ti"`), which waits for the variants slice; `SelfContact`
-refuses it.
+ACCD (Li, Kaufman, Jiang 2021, Codimensional IPC, supplement): each stencil
+advances its time by steps that provably cannot close more than the
+remaining gap and stops leaving `slackness * d0` of it. The JAX package
+runs a `fori_loop` of `max_iter` iterations with a `done` mask; the port
+runs the same fixed count over all pairs at once, with no host read.
+
+Interval CCD (`ti_pt`, `ti_ee`): with linear vertex motion the separation
+function is affine in t for fixed barycentric coordinates and affine in
+those for fixed t, so over a time cell [ta, tb] its per-coordinate range
+is spanned by the corner evaluations (6 for PT, 8 for EE). A cell can hold
+a root only if every coordinate's range, inflated by the minimum
+separation and a rounding bound, straddles zero. The earliest root is
+bracketed by a fixed-count bisection on t, over all pairs at once. The
+box is taken in a frame whose first axis is the initial separation
+direction (the gradient of the squared distance, by autograd as JAX takes
+it by `jax.grad`), which keeps sliding contacts certified in one test.
 """
 
 import torch
 
-from ipc_tpu_torch.ops.distance import edge_edge_dist2, point_triangle_dist2
+from ipc_tpu_torch.ops.distance import cross, edge_edge_dist2, point_triangle_dist2
 
-__all__ = ["accd_pt", "accd_ee"]
+__all__ = ["accd_pt", "accd_ee", "ti_pt", "ti_ee"]
 
 
 def _norm(v):
@@ -65,3 +74,92 @@ def accd_pt(x4, p4, slackness=0.2, max_iter=64):
 def accd_ee(x4, p4, slackness=0.2, max_iter=64):
     """Safe steps (N,) of edge-edge stencils (a0, a1, b0, b1)."""
     return _accd(x4, p4, _ee, slackness, max_iter)
+
+
+# ---------------------------------------------------------------------------
+# Tight-Inclusion-style interval CCD
+# ---------------------------------------------------------------------------
+
+
+def _sep_frame(x4, kind):
+    """(N,3,3) rotations whose first row is each stencil's initial
+    separation direction: the gradient of d^2 w.r.t. the point (PT) or
+    summed over the first edge's endpoints (EE); the identity axis where
+    the gradient vanishes (touching or degenerate stencils)."""
+    with torch.enable_grad():
+        if kind == "pt":
+            p = x4[:, 0].detach().requires_grad_(True)
+            d2 = point_triangle_dist2(p, x4[:, 1], x4[:, 2], x4[:, 3])
+            g = torch.autograd.grad(d2.sum(), p)[0]
+        else:
+            a = x4[:, :2].detach().requires_grad_(True)
+            d2 = edge_edge_dist2(a[:, 0], a[:, 1], x4[:, 2], x4[:, 3])
+            g = torch.autograd.grad(d2.sum(), a)[0].sum(dim=1)
+    g = g.detach()
+    n = torch.sqrt((g * g).sum(-1, keepdim=True))
+    ok = n > 1e-30
+    ex = torch.zeros_like(g)
+    ex[:, 0] = 1.0
+    ey = torch.zeros_like(g)
+    ey[:, 1] = 1.0
+    e0 = torch.where(ok, g / torch.where(ok, n, torch.ones_like(n)), ex)
+    # any orthonormal completion: Gram-Schmidt on the less aligned axis
+    a = torch.where(torch.abs(e0[:, :1]) < 0.9, ex, ey)
+    e1 = a - (a * e0).sum(-1, keepdim=True) * e0
+    e1 = e1 / torch.clamp(torch.sqrt((e1 * e1).sum(-1, keepdim=True)), min=1e-30)
+    return torch.stack([e0, e1, cross(e0, e1)], dim=1)
+
+
+def _ti_corner_evals(x4, p4, t, kind):
+    """Separation-function corner evaluations (N,K,3) at times t (N,)."""
+    y = x4 + t[:, None, None] * p4
+    if kind == "pt":
+        # (u,v) simplex corners: (0,0) -> t0, (1,0) -> t1, (0,1) -> t2
+        return torch.stack([y[:, 0] - y[:, 1], y[:, 0] - y[:, 2], y[:, 0] - y[:, 3]], dim=1)
+    return torch.stack([y[:, 0] - y[:, 2], y[:, 0] - y[:, 3], y[:, 1] - y[:, 2],
+                        y[:, 1] - y[:, 3]], dim=1)
+
+
+def _ti_root_free(x4, p4, ta, tb, pad, kind, R):
+    """(N,) bool: [ta, tb] provably holds no root (a coordinate of R q over
+    the cell's corners, inflated by `pad` (N,), excludes 0)."""
+    q = torch.cat([_ti_corner_evals(x4, p4, ta, kind), _ti_corner_evals(x4, p4, tb, kind)],
+                  dim=1)  # (N,2K,3)
+    # q @ R^T, summed over j in order 0, 1, 2
+    q = (q[:, :, 0:1] * R[:, None, :, 0] + q[:, :, 1:2] * R[:, None, :, 1]
+         + q[:, :, 2:3] * R[:, None, :, 2])
+    lo = q.amin(dim=1) - pad[:, None]
+    hi = q.amax(dim=1) + pad[:, None]
+    return ((lo > 0.0) | (hi < 0.0)).any(dim=1)
+
+
+def _ti(x4, p4, kind, t_max=1.0, ms=0.0, max_iter=32):
+    """Conservative safe steps (N,) in [0, t_max]: no root in [0, t] up to
+    the minimum separation `ms` ((N,) or scalar) and the rounding bound."""
+    eps = 2.220446049250313e-16 if x4.dtype == torch.float64 else 1.1920929e-7
+    m = torch.maximum(torch.abs(x4).amax(dim=(1, 2)), torch.abs(x4 + p4).amax(dim=(1, 2)))
+    m = torch.clamp(m, min=1.0)
+    # the reference's cubic error form, doubled for the frame rotation
+    err = 24.0 * eps * m * m
+    pad = ms + err
+    R = _sep_frame(x4, kind)
+    zero = torch.zeros_like(m)
+    tmax = torch.full_like(m, t_max)
+    free_all = _ti_root_free(x4, p4, zero, tmax, pad, kind, R)
+    lo, hi = zero, tmax
+    for _ in range(max_iter):
+        mid = 0.5 * (lo + hi)
+        first_free = _ti_root_free(x4, p4, lo, mid, pad, kind, R)
+        lo, hi = torch.where(first_free, mid, lo), torch.where(first_free, hi, mid)
+    return torch.where(free_all, tmax, lo)
+
+
+def ti_pt(x4, p4, t_max=1.0, ms=0.0, max_iter=32):
+    """Conservative safe steps (N,) of point-triangle stencils (p, t0, t1,
+    t2) with minimum separation ms."""
+    return _ti(x4, p4, "pt", t_max, ms, max_iter)
+
+
+def ti_ee(x4, p4, t_max=1.0, ms=0.0, max_iter=32):
+    """Conservative safe steps (N,) of edge-edge stencils (a0, a1, b0, b1)."""
+    return _ti(x4, p4, "ee", t_max, ms, max_iter)

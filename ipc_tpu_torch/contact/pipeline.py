@@ -8,13 +8,15 @@ counts stay, so a step's stats compare with the JAX package's.
 
 Every value read back to the host (set sizes) adds to `host_syncs`.
 
-Not ported yet: the Tight-Inclusion CCD (`ccd_method="ti"`, variants
-slice), per-vertex friction coefficients of kinematic collision objects
-(`vert_mu`), the dense sweep of oversized primitives on the grid path
-(`_classify_big` finding any), the SPMD broad phase, and the
+`ccd_method` picks ACCD ("accd") or, with "ti", the per-pair maximum of
+the interval CCD and ACCD (both conservative, so their maximum is too).
+
+Not ported yet: per-vertex friction coefficients of kinematic collision
+objects (`vert_mu`), the dense sweep of oversized primitives on the grid
+path (`_classify_big` finding any), the SPMD broad phase, and the
 full-candidate `energy/gradient/hessian_blocks/n_active/et_pairs` helpers,
 which the production step does not call. The constructor raises
-NotImplementedError for the first three.
+NotImplementedError for the first two.
 """
 
 import math
@@ -26,10 +28,10 @@ import torch
 from ipc_tpu_torch.contact import broadphase as BP
 from ipc_tpu_torch.contact import selfcollision as SC
 from ipc_tpu_torch.contact import spatial_hash as SH
-from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
+from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt, ti_ee, ti_pt
 from ipc_tpu_torch.contact.intersection import any_edge_tri_intersection
 from ipc_tpu_torch.ops.compensated import df_add, df_scale, df_sum
-from ipc_tpu_torch.ops.distance import eps_x_ee
+from ipc_tpu_torch.ops.distance import edge_edge_dist2, eps_x_ee, point_triangle_dist2
 from ipc_tpu_torch.ops.scatter import make_dynamic_gather_sum
 from ipc_tpu_torch.ops.spd import make_psd
 
@@ -83,10 +85,8 @@ class SelfContact:
 
     def __init__(self, mesh, meta, friction=0.0, vert_mu=None, broadphase=None,
                  ccd_method="accd"):
-        if ccd_method != "accd":
-            raise NotImplementedError(
-                f"ccd_method={ccd_method!r}: only 'accd' is ported (Tight-Inclusion "
-                "waits for the variants slice)")
+        if ccd_method not in ("accd", "ti"):
+            raise ValueError(f"ccd_method={ccd_method!r}: 'accd' or 'ti'")
         if vert_mu is not None:
             raise NotImplementedError(
                 "vert_mu (kinematic collision objects) is not ported yet")
@@ -245,15 +245,23 @@ class SelfContact:
     # -- CCD and the intersection check --------------------------------------
 
     def ccd_alpha(self, x, dx, cand, gap_frac=0.2, max_iter=64):
-        """Least ACCD safe step over the candidates (0-d, at most 1); the
-        candidates' sweep must cover dx."""
+        """Least safe step over the candidates (0-d, at most 1); the
+        candidates' sweep must cover dx. With ccd_method "ti" each pair's
+        step is the larger of the interval CCD's (minimum separation
+        gap_frac * d0) and ACCD's."""
         a = torch.ones((), dtype=x.dtype, device=x.device)
-        if cand.pt_count:
-            a = torch.minimum(a, accd_pt(x[cand.pt_vids], dx[cand.pt_vids], gap_frac,
-                                         max_iter).amin())
-        if cand.ee_count:
-            a = torch.minimum(a, accd_ee(x[cand.ee_vids], dx[cand.ee_vids], gap_frac,
-                                         max_iter).amin())
+        for count, vids, accd, ti, dist2 in (
+                (cand.pt_count, cand.pt_vids, accd_pt, ti_pt, point_triangle_dist2),
+                (cand.ee_count, cand.ee_vids, accd_ee, ti_ee, edge_edge_dist2)):
+            if not count:
+                continue
+            x4, p4 = x[vids], dx[vids]
+            t = accd(x4, p4, gap_frac, max_iter)
+            if self.ccd_method == "ti":
+                d0 = torch.sqrt(torch.clamp(
+                    dist2(x4[:, 0], x4[:, 1], x4[:, 2], x4[:, 3]), min=0.0))
+                t = torch.maximum(ti(x4, p4, 1.0, gap_frac * d0, max_iter), t)
+            a = torch.minimum(a, t.amin())
         return a
 
     def intersects_pairs(self, x, pairs):

@@ -3,8 +3,9 @@ plain version and a library yardstick.
 
     python -m ipc_tpu_torch.hv_timing
 
-prints one JSON object per (n_cells, dtype) of the two-box scene's
-topology (n_cells 8 and 20: 6,144 and 96,000 tets), with seeded random
+prints one JSON object per (scene, n, dtype): the two-box scene's
+topology at n_cells 8 and 20 (6,144 and 96,000 tets) and the mat-twist
+scene's at n = 100 (60,000 tets, 20,402 vertices), with seeded random
 SPD-like H blocks and v rows (a fifth of them zeroed, as DBC rows are):
 
   max_abs_err, limit  kernel vs plain version, and the tolerance (1e-5 in
@@ -35,7 +36,7 @@ SPD-like H blocks and v rows (a fifth of them zeroed, as DBC rows are):
 The yardstick is one PyTorch call computing the same linear map: `A @ v`
 with A the assembled torch.sparse_csr_tensor (cuSPARSE SpMV). The port never
 calls it. The module uses only make_tet_hv_table, tet_hv, tet_hv_reference
-and build_scene(n, dtype, "cpu"), so it also times an older checkout of the
+and the scene builders on "cpu", so it also times an older checkout of the
 package for a same-card comparison.
 """
 
@@ -98,13 +99,18 @@ def kernel_split_us(fn, flush):
     return out
 
 
-def hv_problem(n_cells):
-    """Numpy inputs at the two-box scene's topology, seeded by n_cells:
-    tets (T,4), n_verts, H (T,12,12) SPD-like, v (V,3) with a fifth of its
-    rows zeroed."""
-    from ipc_tpu_torch.scenes import build_scene
+SCENES = (("boxes", 8), ("boxes", 20), ("twist", 100))
 
-    st = build_scene(n_cells, torch.float64, "cpu")
+
+def hv_problem(n_cells, scene="boxes"):
+    """Numpy inputs at a scene's topology (the two-box scene at n_cells, or
+    the mat-twist scene at n = n_cells), seeded by n_cells: tets (T,4),
+    n_verts, H (T,12,12) SPD-like, v (V,3) with a fifth of its rows
+    zeroed."""
+    from ipc_tpu_torch import scenes
+
+    build = scenes.build_twist_scene if scene == "twist" else scenes.build_scene
+    st = build(n_cells, torch.float64, "cpu")
     tets = st.mesh.tets.numpy()
     n_verts = int(st.mesh.x_rest.shape[0])
     rng = np.random.default_rng(n_cells)
@@ -136,12 +142,12 @@ def assemble_csr(H, tets, n_verts):
         return coo.coalesce().to_sparse_csr()
 
 
-def measure(n_cells, dtype, device):
-    """One record (see the module docstring) for the scene's topology at
+def measure(n_cells, dtype, device, scene="boxes"):
+    """One record (see the module docstring) for a scene's topology at
     n_cells, in dtype, on the card."""
     from ipc_tpu_torch.ops.tet_hv import make_tet_hv_table, tet_hv, tet_hv_reference
 
-    tets_np, n_verts, H_np, v_np = hv_problem(n_cells)
+    tets_np, n_verts, H_np, v_np = hv_problem(n_cells, scene)
     table = make_tet_hv_table(tets_np, n_verts, device)
     H = torch.as_tensor(H_np, device=device).to(dtype).contiguous()
     v = torch.as_tensor(v_np, device=device).to(dtype).contiguous()
@@ -180,7 +186,7 @@ def measure(n_cells, dtype, device):
     n_tets, D = tets_np.shape[0], int(table.inc.shape[1])
     nbytes, flops, bound_us, bound_by = hv_bound(n_tets, n_verts, D, dtype)
     return dict(
-        n_cells=n_cells, tets=n_tets, verts=n_verts, D=D,
+        scene=scene, n_cells=n_cells, tets=n_tets, verts=n_verts, D=D,
         dtype=str(dtype).replace("torch.", ""),
         max_abs_err=err, limit=TOL[dtype] * scale, bitwise_repeat=bool(torch.equal(out, again)),
         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -196,9 +202,9 @@ def main():
 
     device = require_cuda()
     print(f"[hv_timing] {torch.cuda.get_device_name(0)}", flush=True)
-    for n_cells in (8, 20):
+    for scene, n_cells in SCENES:
         for dtype in (torch.float32, torch.float64):
-            print(json.dumps(measure(n_cells, dtype, device)), flush=True)
+            print(json.dumps(measure(n_cells, dtype, device, scene)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,13 @@
 """Per-layer wall times of the production step on one GPU.
 
-    python -m ipc_tpu_torch.profile_step [--n-cells 20] [--dtype float32]
-        [--settle 8] [--steps 3] [--no-contact]
+    python -m ipc_tpu_torch.profile_step [--scene boxes|twist] [--n-cells 20]
+        [--dtype float32] [--settle 8] [--steps 3] [--no-contact]
 
-Builds the two-box scene (`scenes.build_scene`, with self-contact unless
---no-contact), takes `settle` steps, then runs the next `steps` steps three
-times from the same state (the step is deterministic, so each run does the
-same work):
+Builds the two-box scene (`scenes.build_scene` at n_cells, with
+self-contact unless --no-contact) or the mat-twist scene
+(`scenes.build_twist_scene` at n = n_cells), takes `settle` steps, then
+runs the next `steps` steps three times from the same state (the step is
+deterministic, so each run does the same work):
 
   1. plain: wall seconds per step, Newton/PCG iterations, host syncs;
   2. layers: a `torch.cuda.synchronize()` around every call of each layer
@@ -86,11 +87,21 @@ def _install(timers, stepper):
         (stepper, "_friction_gradient", "friction gradient"),
         (stepper, "_friction_hessians", "friction blocks"),
     ]
+    if stepper.script is not None:
+        closures = JS.device_closures
+
+        def closures_timed(*args, **kwargs):
+            disp_fn, fext_fn, turn = closures(*args, **kwargs)
+            if disp_fn is not None:
+                disp_fn = timers.wrap("scripted displacement (disp_fn)", disp_fn)
+            return disp_fn, fext_fn, turn
+
+        JS.device_closures = closures_timed
     sc = stepper.sc
     if sc is not None:
         targets += [
             (sc, "build_candidates", "broad phase (build_candidates)"),
-            (sc, "ccd_alpha", "CCD (ACCD)"),
+            (sc, "ccd_alpha", f"CCD ({sc.ccd_method})"),
             (sc, "active_set", "active-set compaction"),
             (sc, "hessian_blocks_from_active", "pair Hessians + PSD"),
             (PL, "make_psd", "  PSD projection (in pair Hessians)"),
@@ -126,6 +137,7 @@ def _run(step, state, n):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scene", choices=("boxes", "twist"), default="boxes")
     ap.add_argument("--n-cells", type=int, default=20)
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--settle", type=int, default=8)
@@ -135,13 +147,16 @@ def main(argv=None):
 
     from ipc_tpu_torch import jit_step as JS
     from ipc_tpu_torch.device import require_cuda
-    from ipc_tpu_torch.scenes import build_scene
+    from ipc_tpu_torch.scenes import build_scene, build_twist_scene
 
     device = require_cuda()
-    print(f"[profile] {torch.cuda.get_device_name(0)}; n_cells={args.n_cells} "
-          f"{args.dtype} contact={not args.no_contact} settle={args.settle} "
-          f"steps={args.steps}")
-    st = build_scene(args.n_cells, args.dtype, device, with_contact=not args.no_contact)
+    print(f"[profile] {torch.cuda.get_device_name(0)}; scene={args.scene} "
+          f"n_cells={args.n_cells} {args.dtype} contact={not args.no_contact} "
+          f"settle={args.settle} steps={args.steps}")
+    if args.scene == "twist":
+        st = build_twist_scene(args.n_cells, args.dtype, device)
+    else:
+        st = build_scene(args.n_cells, args.dtype, device, with_contact=not args.no_contact)
     timers = _Timers()
     _install(timers, st)
     step = JS.make_step(st)

@@ -1,14 +1,15 @@
 """Time-stepper parameters, state and scene scalars.
 
 Port of the parts of ipc_tpu/timestepper.py that the production step
-(jit_step.make_step) reads: `SimParams` and `SimState` (:55-137), the
-scalar setup of `IPCStepper.__init__` (:171-245), `suggest_kappa`
-(:332-340, a host float), the half-space and self-contact friction terms
-(:776-848) and `initial_state` (:910-913).
+(jit_step.make_step) reads: `SimParams` and `SimState` (:55-141), the
+scalar setup of `IPCStepper.__init__` (:171-245, the moving-plane state
+included), `suggest_kappa` (:332-340, a host float), the half-space and
+self-contact friction terms (:776-848, with the planes' per-step
+displacement) and `initial_state` (:910-913).
 
 Not ported yet: the host-orchestrated `IPCStepper.step` / `_solve_sub_ip`
-path (dHat homotopy, outer friction loop, moving-DBC sub-solve) and the
-kappa helpers it uses.
+path (dHat homotopy, outer friction loop, moving-DBC sub-solve, the host
+plane move `_step_aco`) and the kappa helpers it uses.
 """
 
 import math
@@ -59,9 +60,10 @@ class SimParams:
 @dataclass(frozen=True)
 class SimState:
     """Dynamic simulation state: (V,3) tensors on one device, one dtype;
-    `t` and `step` are host numbers. (The JAX SimState's `dx_el`, for the
-    host path's warm start, and `aux`, for device scripts, arrive with those
-    slices.)"""
+    `t` and `step` are host numbers. `aux` is the device-script state, a
+    dict of tensors (turning-rule signs and flags, moving-plane origins and
+    velocities; jit_step.initial_device_aux) or None. (The JAX SimState's
+    `dx_el`, for the host path's warm start, arrives with that slice.)"""
 
     x: torch.Tensor
     x_prev: torch.Tensor
@@ -69,6 +71,7 @@ class SimState:
     a: torch.Tensor
     t: float = 0.0
     step: int = 0
+    aux: dict = None
 
     @property
     def device(self):
@@ -101,12 +104,22 @@ class IPCStepper:
         self.dHat = (params.dhat_rel**2) * self.bbox_diag2
         self.dTol = (params.dtol_rel**2) * self.bbox_diag2
         self.target_gres = float(np.sqrt(params.rel_gl2_tol * self.bbox_diag2 * self.dtSq))
+        # moving-DBC pull threshold (reference CN_MBC)
+        self.cn_mbc = float(np.sqrt(1e-4 * self.bbox_diag2 * self.dtSq))
         # the jit path runs no fricDHat homotopy: friction uses the target
         self.fric_dhat_target = (
             (params.fric_dhat_target_rel**2) * self.dtSq * self.bbox_diag2
         )
         self.avg_node_mass = meta.avg_node_mass
         self.gravity = np.asarray(params.gravity)
+
+        # moving analytic planes (ACO scripts): the planes' initial origins;
+        # the step carries the current ones in SimState.aux
+        self.hs_origin = (
+            np.array([np.asarray(h.params.origin, float) for h in self.halfspaces])
+            if self.halfspaces else np.zeros((0, 3)))
+        self.hs_moving = bool(script is not None and getattr(script, "aco_kind", None)
+                              and self.halfspaces)
 
         self._sv = mesh.surf_verts
         self._dbc_sv = mesh.dbc_mask[mesh.surf_verts]
@@ -132,12 +145,14 @@ class IPCStepper:
 
     # ------------------------------------------------------------------
     # lagged half-space and self-contact friction (fric is a dict or None;
-    # fric["sc"] is SelfContact.capture_friction's state or None)
+    # fric["sc"] is SelfContact.capture_friction's state or None;
+    # fric["hs_veldt"] the moving planes' per-step displacements or None)
     # ------------------------------------------------------------------
 
     def _hs_friction(self, fric):
+        veldts = fric.get("hs_veldt") or [None] * len(self.halfspaces)
         return [
-            (hs, st) for hs, st in zip(self.halfspaces, fric["hs"])
+            (hs, st, vdt) for hs, st, vdt in zip(self.halfspaces, fric["hs"], veldts)
             if hs.params.friction > 0.0
         ]
 
@@ -146,8 +161,9 @@ class IPCStepper:
         if fric is None:
             return E
         x_sv = x[self._sv]
-        for hs, st in self._hs_friction(fric):
-            E = E + hs.friction_energy(x_sv, fric["anchor"][self._sv], st, fric["eps2"])
+        for hs, st, vdt in self._hs_friction(fric):
+            E = E + hs.friction_energy(x_sv, fric["anchor"][self._sv], st, fric["eps2"],
+                                       veldt=vdt)
         if fric.get("sc") is not None:
             E = E + SC.friction_energy(fric["sc"], x, fric["anchor"], fric["eps2"], 1.0)
         return E
@@ -157,9 +173,9 @@ class IPCStepper:
         if fric is None:
             return g
         x_sv = x[self._sv]
-        for hs, st in self._hs_friction(fric):
+        for hs, st, vdt in self._hs_friction(fric):
             g = g.index_add(0, self._sv, hs.friction_grad_sv(
-                x_sv, fric["anchor"][self._sv], st, fric["eps2"]))
+                x_sv, fric["anchor"][self._sv], st, fric["eps2"], veldt=vdt))
         if fric.get("sc") is not None:
             fr = fric["sc"]
             g = g + SC.friction_gradient(fr, x, fric["anchor"], fric["eps2"], 1.0,
@@ -179,8 +195,9 @@ class IPCStepper:
         if fric is None:
             return out
         x_sv = x[self._sv]
-        for hs, st in self._hs_friction(fric):
-            H3 = hs.friction_hess_blocks_sv(x_sv, fric["anchor"][self._sv], st, fric["eps2"])
+        for hs, st, vdt in self._hs_friction(fric):
+            H3 = hs.friction_hess_blocks_sv(x_sv, fric["anchor"][self._sv], st, fric["eps2"],
+                                            veldt=vdt)
             out.append((self._sv[:, None], H3))
         if fric.get("sc") is not None:
             fr = fric["sc"]

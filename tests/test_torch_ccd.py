@@ -1,4 +1,5 @@
-"""Port parity: ACCD (ipc_tpu_torch.contact.ccd) and the edge-triangle
+"""Port parity: ACCD and the interval CCD (ipc_tpu_torch.contact.ccd), the
+interval branch of SelfContact.ccd_alpha, and the edge-triangle
 intersection test (contact.intersection) against the JAX package.
 
 The cases of tests/test_ccd.py and tests/test_ccd_corpus.py are rebuilt here
@@ -262,3 +263,79 @@ def test_warped_face_is_no_intersection_in_float32():
     got = TI.any_edge_tri_intersection(torch.as_tensor(x), torch.as_tensor(edges),
                                        torch.as_tensor(tris), torch.as_tensor(pairs))
     assert not bool(got)
+
+
+# -- Tight-Inclusion-style interval CCD ---------------------------------------
+
+TI_KINDS = {"pt": (CCD.ti_pt, JCCD.ti_pt, point_triangle_dist2, _pt_cases, _random_pt_cases),
+            "ee": (CCD.ti_ee, JCCD.ti_ee, edge_edge_dist2, _ee_cases, _random_ee_cases)}
+
+
+@pytest.mark.parametrize("kind", ["pt", "ee"])
+@pytest.mark.parametrize("max_iter", [32, 64])
+def test_ti_matches_jax(kind, max_iter):
+    """The cases and 200 seeded stencils, with no minimum separation and
+    with ccd_alpha's 0.2 d0: within one bisection interval of JAX's safe
+    steps. Past ~40 halvings the interval nears float64's spacing of t and
+    the two packages' rounding (autograd against jax.grad in the frame)
+    may flip a late box test, so the bound stays at 2^-40 there."""
+    port, ref, dist2, cases, rand = TI_KINDS[kind]
+    cases = cases()
+    X2, P2 = rand(np.random.default_rng(3), 200)
+    X = np.concatenate([np.stack([c[0] for c in cases]), X2])
+    P = np.concatenate([np.stack([c[1] for c in cases]), P2])
+    Xt, Pt = torch.as_tensor(X), torch.as_tensor(P)
+    d0 = torch.sqrt(torch.clamp(dist2(Xt[:, 0], Xt[:, 1], Xt[:, 2], Xt[:, 3]), min=0.0))
+    tol = 2.0 ** -min(max_iter, 40)
+    for ms in (torch.zeros_like(d0), 0.2 * d0):
+        got = port(Xt, Pt, 1.0, ms, max_iter).numpy()
+        want = np.asarray(jax.vmap(lambda a, b, m: ref(a, b, 1.0, m, max_iter))(
+            jnp.asarray(X), jnp.asarray(P), jnp.asarray(ms.numpy())))
+        assert np.isfinite(got).all() and ((got >= 0) & (got <= 1)).all()
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+        assert (got < 1).mean() > 0.5  # most cases do bound the step
+
+
+@pytest.fixture(scope="module")
+def ti_scene():
+    """The two-box scene at n_cells=2, the upper box lowered onto the lower
+    one to 0.4 sqrt(dHat) and jittered (seeded); both packages' self-contact
+    with ccd_method="ti"; a seeded sweep that closes the boxes."""
+    import __graft_entry__ as ge
+    from ipc_tpu.contact.pipeline import SelfContact as JSelfContact
+    from ipc_tpu_torch.contact.pipeline import SelfContact as PSelfContact
+    from ipc_tpu_torch.scenes import build_scene
+
+    jst = ge._build_scene(n_cells=2, dtype=np.float64, with_contact=True)
+    pst = build_scene(2, torch.float64, "cpu", with_contact=True)
+    x = pst.mesh.x_rest.numpy().copy()
+    upper = np.asarray(jst.mesh.vert_comp) == 1
+    gap = float(np.sqrt(pst.dHat))
+    x[upper, 1] += x[~upper, 1].max() + 0.4 * gap - x[upper, 1].min()
+    x[upper, 0] += 0.5 / 3.0
+    rng = np.random.default_rng(12)
+    x[upper] += rng.uniform(-0.1, 0.1, size=(int(upper.sum()), 3)) * gap
+    disp = rng.normal(scale=0.3 * gap, size=x.shape)
+    disp[upper, 1] -= 0.6 * gap
+    jsc = JSelfContact(jst.mesh, jst.meta, friction=0.1, ccd_method="ti")
+    psc = PSelfContact(pst.mesh, pst.meta, friction=0.1, ccd_method="ti")
+    return jsc, psc, x, disp, gap
+
+
+def test_ti_ccd_alpha_matches_jax(ti_scene):
+    jsc, psc, x, disp, gap = ti_scene
+    xj, dj = jnp.asarray(x), jnp.asarray(disp)
+    xt, dt = torch.as_tensor(x), torch.as_tensor(disp)
+    jc = jax.jit(lambda a, b: jsc.build_candidates(a, b, gap))(xj, dj)
+    pc = psc.build_candidates(xt, dt, gap)
+    assert (pc.pt_count, pc.ee_count) == (int(jc.pt_count), int(jc.ee_count))
+    assert pc.pt_count > 0 and pc.ee_count > 0
+    for max_iter in (32, 64):
+        want = float(jax.jit(lambda a, b, c: jsc.ccd_alpha(a, b, c, 0.2, max_iter))(xj, dj, jc))
+        got = psc.ccd_alpha(xt, dt, pc, 0.2, max_iter).item()
+        np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -min(max_iter, 40))
+        assert 0.0 < got < 1.0  # the sweep closes the boxes: the step is bounded
+        # the hybrid bound is the larger of the two conservative ones
+        psc.ccd_method = "accd"
+        assert got >= psc.ccd_alpha(xt, dt, pc, 0.2, max_iter).item()
+        psc.ccd_method = "ti"

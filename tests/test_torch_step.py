@@ -32,6 +32,7 @@ from ipc_tpu_torch.contact.pipeline import SelfContact
 from ipc_tpu_torch.convert import state_from_numpy, state_to_numpy
 from ipc_tpu_torch.jit_step import make_step
 from ipc_tpu_torch.scenes import build_scene
+from ipc_tpu_torch.scripting import DBCGroup, MeshSeqMotion, Script
 from ipc_tpu_torch.timestepper import IPCStepper, SimParams
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -112,13 +113,21 @@ def test_step_is_deterministic_and_dtype_clean():
     assert s1.step == 1 and s1.t == pytest.approx(st.dt)
 
 
+def _mesh_seq_script(n_verts):
+    return Script(n_verts=n_verts, mesh_seqs=[MeshSeqMotion(
+        verts=np.arange(4), folder="frames", transform=None, n_frames=2, ext=".obj")])
+
+
+# make_step refuses exactly these: burst= (any value, 0 included), the host
+# path's linear solvers, per-vertex friction of kinematic mesh objects, and
+# mesh-sequence scripts (ValueError, as make_jit_step)
 @pytest.mark.parametrize("change", [
-    dict(params=SimParams(time_integration="NM")),
-    dict(params=SimParams(damping_stiff=0.1)),
     dict(params=SimParams(linsys="dense")),
-    dict(sc=SimpleNamespace(ccd_method="ti")),
-    dict(script=object()),
+    dict(params=SimParams(linsys="sparse")),
     dict(burst=4),
+    dict(burst=0),
+    dict(sc=SimpleNamespace(vert_mu=np.ones(1), ccd_method="accd")),
+    dict(script="mesh_seq"),
 ])
 def test_make_step_rejects_outside_the_slice(change):
     st = build_scene(1, torch.float64, "cpu")
@@ -126,26 +135,53 @@ def test_make_step_rejects_outside_the_slice(change):
         st = IPCStepper(st.mesh, st.meta, change["params"], halfspaces=st.halfspaces)
     if "sc" in change:
         st.sc = change["sc"]
+    error = NotImplementedError
     if "script" in change:
-        st.script = change["script"]
-    with pytest.raises(NotImplementedError):
+        st = IPCStepper(st.mesh, st.meta, st.p, halfspaces=st.halfspaces,
+                        script=_mesh_seq_script(int(st.mesh.x_rest.shape[0])))
+        error = ValueError
+    with pytest.raises(error):
         make_step(st, burst=change.get("burst"))
 
 
+@pytest.mark.parametrize("change", [
+    dict(params=SimParams(time_integration="NM")),
+    dict(params=SimParams(model="FCR")),
+    dict(params=SimParams(damping_stiff=0.1)),
+    dict(params=SimParams(coarse_precond=False)),
+    dict(ccd_method="ti"),
+    dict(script=True),
+], ids=["newmark", "fcr", "damping", "no_coarse", "ccd_ti", "script"])
+def test_make_step_accepts_the_variants(change):
+    st = build_scene(1, torch.float64, "cpu", with_contact="ccd_method" in change)
+    sc = (SelfContact(st.mesh, st.meta, friction=0.1, ccd_method=change["ccd_method"])
+          if "ccd_method" in change else None)
+    script = None
+    if "script" in change:
+        n = int(st.mesh.x_rest.shape[0])
+        script = Script(n_verts=n, dbc_groups=[DBCGroup(np.arange(4), np.array([0.0, 1.0, 0.0]))])
+    st = IPCStepper(st.mesh, st.meta, change.get("params", st.p), halfspaces=st.halfspaces,
+                    self_contact=sc, script=script)
+    s, stats = make_step(st)(st.initial_state())
+    assert stats.newton_iters > 0 and torch.isfinite(s.x).all()
+
+
 def test_self_contact_scene_not_yet_ported():
-    """The bench scene's self-contact is ported; what waits for later
-    slices (Tight-Inclusion CCD, per-vertex friction of kinematic objects)
-    is refused, not silently replaced."""
+    """The bench scene's self-contact is ported, Tight-Inclusion CCD
+    included; what waits for a later slice (per-vertex friction of
+    kinematic objects) is refused, not silently replaced."""
     st = build_scene(2, torch.float64, "cpu", with_contact=True)
     assert st.sc is not None and st.sc.broadphase == "dense"
-    for kwargs in (dict(ccd_method="ti"), dict(vert_mu=np.ones(1))):
-        with pytest.raises(NotImplementedError):
-            SelfContact(st.mesh, st.meta, friction=0.1, **kwargs)
+    assert SelfContact(st.mesh, st.meta, friction=0.1, ccd_method="ti").ccd_method == "ti"
+    with pytest.raises(NotImplementedError):
+        SelfContact(st.mesh, st.meta, friction=0.1, vert_mu=np.ones(1))
+    with pytest.raises(ValueError):
+        SelfContact(st.mesh, st.meta, friction=0.1, ccd_method="ctcd")
 
 
 def test_port_never_imports_jax():
-    # jax and the JAX package are made unimportable, then a ground step and
-    # a self-contact step
+    # jax and the JAX package are made unimportable, then a ground step, a
+    # self-contact step and a scripted (twist) step
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -153,10 +189,14 @@ def test_port_never_imports_jax():
         "import ipc_tpu_torch\n"
         "from ipc_tpu_torch.scenes import build_scene\n"
         "from ipc_tpu_torch.jit_step import make_step\n"
+        "from ipc_tpu_torch.scenes import build_twist_scene\n"
         "for contact in (False, True):\n"
         "    st = build_scene(2, 'float64', 'cpu', with_contact=contact)\n"
         "    s, stats = make_step(st)(st.initial_state())\n"
         "    assert stats.newton_iters > 0 and (st.sc is not None) == contact\n"
+        "st = build_twist_scene(3, 'float64', 'cpu')\n"
+        "s, stats = make_step(st)(st.initial_state())\n"
+        "assert stats.script_scale == 1.0\n"
         "sys.modules.pop('jax')\n"
         "sys.modules.pop('ipc_tpu')\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ipc_tpu')\n"
