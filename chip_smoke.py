@@ -10,7 +10,9 @@ and ends the run with a non-zero exit code (nothing is caught):
   2. build: the CUDA kernels from csrc/ (nvcc, sm_90a) into build/kernels/;
   3. kernel vs plain: tet_hv against its plain PyTorch version on the card
      at the scenes' shapes (the boxes at n_cells 8 and 20: 6,144 and
-     96,000 tets; the twist at n = 100: 60,000 tets; float32 and float64), with tolerances 1e-5 (f32) / 1e-12 (f64) x the
+     96,000 tets; the twist at n = 100: 60,000 tets; the driver scene: the
+     boxes at 20 plus the plate's 4 tet-less vertices, whose rows must be
+     exact zeros; float32 and float64), with tolerances 1e-5 (f32) / 1e-12 (f64) x the
      plain result's max |.| and bitwise-equal repeats; device times
      (ipc_tpu_torch/hv_timing.py: CUDA events, median of 20, L2 flushed)
      of the kernel, the plain version and the library yardstick (cuSPARSE
@@ -19,7 +21,7 @@ and ends the run with a non-zero exit code (nothing is caught):
      (bytes at 3.35 TB/s) with the kernel's share of it, and each device
      kernel's time per call (torch.profiler);
   4. ground path: build_scene(n_cells=20, float32, "cuda") -> make_step for
-     6 steps (96,000 tets; ground contact and friction, no self-contact).
+     3 steps (96,000 tets; ground contact and friction, no self-contact).
      Counts are zeroed just before: the Hv kernel must have launched once
      per Newton-operator application. Every state finite, ymin > 0, and
      one step taken twice from one state is bitwise equal;
@@ -40,14 +42,14 @@ and ends the run with a non-zero exit code (nothing is caught):
      bench.py times it, with a shorter window: one warm-up and 10 settling
      steps, then 6 timed steps; seconds per step and per Newton iteration;
   9. contact reference: at n_cells=2 in float64 with contact, the CPU runs
-     8 steps, then each of steps 8-10 is taken from the CPU's state on the
+     8 steps, then each of steps 8-9 is taken from the CPU's state on the
      card and on the CPU. Newton and kappa-doubling counts must be equal;
      x within 1e-9, or within twice the CPU step's own response to a 1-ulp
      perturbation of x where that is larger (an ill-conditioned impact
      step), and the PCG count within the count change the same
      perturbation causes (the perturbed steps run only when x or the PCG
      count differ);
- 10. twist path, this slice's path: build_twist_scene(100, float32,
+ 10. twist path: build_twist_scene(100, float32,
      "cuda") (the paper's mat100x100 twist: 60,000 tets, 20,402 vertices,
      self-contact, scripted handles) -> make_step for 25 steps (1.0 s;
      each handle turns 72 degrees). Per step: Newton and PCG iterations,
@@ -64,13 +66,29 @@ and ends the run with a non-zero exit code (nothing is caught):
      doubling and AL counts and script_scale; x within max(1e-9, twice the
      CPU's 1-ulp response); PCG within its 1-ulp change): Newmark, FCR,
      damping_stiff 1e-4 and coarse_precond=False (build_scene(2), 3 steps),
-     ccd_method="ti" (with contact, steps 8-10 from phase 9's state before
-     step 8), the turning-rule cube (8 steps), the two-plane ACO squash (6
-     steps), the blocked press (3 steps; the AL must run) and the twist at
-     mat(4) (4 steps).
+     ccd_method="ti" (with contact, step 8 from phase 9's state before
+     it), the turning-rule cube (8 steps), the two-plane ACO squash (6
+     steps), the blocked press (2 steps; the AL must run), the twist at
+     mat(4) (4 steps) and a box_grid(3) cube on a two-triangle kinematic
+     plate (3 steps; grid broad phase with the dense sweep of the plate's
+     oversized primitives, selfFric 0 and plate mu 0.2);
+ 12. driver path, this slice's path: a scene file run through the port's
+     CLI entry point (ipc_tpu_torch.__main__.main, in this process):
+     two box_grid(20) boxes written as .msh files (96,000 tets), NH, BE,
+     dt 0.025, selfCollisionOn, selfFric 0.1, no ground but a meshCO
+     plate (two triangles, 4 wide, friction 0.2; its primitives are
+     oversized, so the grid takes the dense big sweep), `-n 10 --f32
+     --jit-step --save-every 5`. Reads the artifacts: every one written,
+     one iterStats line per Newton iteration, saved states finite, the
+     lower box above the plate, no edge-triangle intersection at the end,
+     the plate bitwise at its placement, friction pairs against the
+     plate, tet_hv launched once per operator application (counts zeroed
+     just before). Then a second scene file restarts from status5.npz in
+     a fresh Simulation and runs steps 5-9: its status10.npz must equal
+     the first run's bitwise.
 
-The line before the last is the kernels record (its launches: the contact
-and twist paths'), the last line
+The line before the last is the kernels record (its launches: the
+contact, twist and driver paths', at the driver shape), the last line
 {"ok": true, "device": {...}}. Without a CUDA device the run fails in
 phase 1 and prints neither.
 """
@@ -131,11 +149,12 @@ def phase_kernel_vs_plain(device):
                   f"nnz={r['nnz']}, assembly_ms={r['assembly_ms']:.3f}) bytes={r['bytes']} "
                   f"bound_us={r['bound_us']:.3f} ({r['bound_by']}) "
                   f"share_of_bound={r['share_of_bound']:.4f} empty_ms={r['empty_ms']:.5f} "
-                  f"split_us={json.dumps(r['split_us'])}")
+                  f"split_us={json.dumps(r['split_us'])} tetless_zero={r['tetless_zero']}")
             what = f"tet_hv {r['dtype']} {scene} n={n_cells}"
             check(r["max_abs_err"] <= r["limit"], f"{what} within tolerance")
             check(r["bitwise_repeat"], f"{what} bitwise repeatable")
             check(r["library_err"] <= r["limit"], f"{what}: the yardstick computes the same map")
+            check(r["tetless_zero"] in (None, True), f"{what}: tet-less rows are exact zeros")
             records[(scene, n_cells, r["dtype"])] = r
     return records
 
@@ -178,7 +197,7 @@ def phase_ground_path(device):
     tet_hv.launches = 0
     ops0, syncs0 = step.operator_applications, step.host_syncs
     total = 0.0
-    for i in range(6):
+    for i in range(3):
         ops_i, syncs_i = step.operator_applications, step.host_syncs
         t0 = time.perf_counter()
         state, stats = step(state)
@@ -193,7 +212,7 @@ def phase_ground_path(device):
               f"host_syncs={step.host_syncs - syncs_i} ymin={ymin:.6g} wall_s={wall:.4f}")
     launches = tet_hv.launches
     ops = step.operator_applications - ops0
-    print(f"[ground] 6 steps in {total:.3f} s; tet_hv launches={launches} "
+    print(f"[ground] 3 steps in {total:.3f} s; tet_hv launches={launches} "
           f"operator applications={ops} host syncs={step.host_syncs - syncs0}")
     check(launches > 0, "tet_hv launched on the ground path")
     check(launches == ops, "one tet_hv launch per operator application (ground)")
@@ -354,7 +373,7 @@ def phase_bench_timing(device):
 
 
 def phase_contact_reference(device):
-    """Steps 8-10 of the contact scene, card against CPU (_hold). Returns
+    """Steps 8-9 of the contact scene, card against CPU (_hold). Returns
     the CPU's state before step 8 (numpy), which the variants reference
     reuses."""
     import torch
@@ -371,7 +390,7 @@ def phase_contact_reference(device):
         s, _ = cpu_step(s)
     lead = state_to_numpy(s)
     rng = np.random.default_rng(2)
-    for i in range(8, 11):
+    for i in range(8, 10):
         s, gs = _hold(f"contact-ref n_cells=2 float64 step {i}", cpu_step, card_step,
                       state_to_numpy(s), rng, device)
         print(f"[contact-ref] step {i}: active pt/ee={gs.active_pt_max}/{gs.active_ee_max}")
@@ -513,8 +532,8 @@ def _variant_scenes():
 
     from ipc_tpu_torch.contact.halfspace import HalfSpace, HalfSpaceParams
     from ipc_tpu_torch.contact.pipeline import SelfContact
-    from ipc_tpu_torch.mesh import build_mesh, merge_meshes
-    from ipc_tpu_torch.models.primitives import cube
+    from ipc_tpu_torch.mesh import append_kinematic_surface, build_mesh, merge_meshes
+    from ipc_tpu_torch.models.primitives import box_grid, cube
     from ipc_tpu_torch.scenes import build_scene, build_twist_scene
     from ipc_tpu_torch.scripting import DBCGroup, Script, TurningRule
     from ipc_tpu_torch.timestepper import IPCStepper, SimParams
@@ -565,16 +584,28 @@ def _variant_scenes():
         return IPCStepper(mesh, meta, SimParams(), halfspaces=[HalfSpace(HalfSpaceParams())],
                           self_contact=SelfContact(mesh, meta, friction=0.0), script=script)
 
+    def cube_on_plate(dev):
+        V, T = box_grid(3, 3, 3)
+        mesh, meta = build_mesh(V + np.array([0.0, 0.001, 0.0]), T, dtype=f64, device=dev)
+        plate = np.array([[-2.0, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2]]) + [0.5, 0, 0.5]
+        mesh, meta, (p0, p1) = append_kinematic_surface(mesh, meta, plate,
+                                                        np.array([[0, 2, 1], [0, 3, 2]]))
+        vert_mu = np.where(np.arange(p1) >= p0, 0.2, 0.0)
+        sc = SelfContact(mesh, meta, friction=0.0, vert_mu=vert_mu, broadphase="grid")
+        check(sc.big is not None, "the plate's primitives take the dense big sweep")
+        return IPCStepper(mesh, meta, SimParams(), self_contact=sc)
+
     return {
         "newmark": (boxes(time_integration="NM"), 3, False),
         "fcr": (boxes(model="FCR"), 3, False),
         "damping": (boxes(damping_stiff=1e-4), 3, False),
         "no_coarse": (boxes(coarse_precond=False), 3, False),
-        "ccd_ti": (ti, 3, True),
+        "ccd_ti": (ti, 1, True),
         "turning": (turning, 8, False),
         "aco_squash": (aco, 6, False),
-        "blocked_press": (press, 3, False),
+        "blocked_press": (press, 2, False),
         "twist_mat4": (lambda dev: build_twist_scene(4, f64, dev), 4, False),
+        "cube_on_plate": (cube_on_plate, 3, False),
     }
 
 
@@ -602,6 +633,141 @@ def phase_variants_reference(device, contact_lead):
         print(f"[variants] {name}: {n_steps} steps held, {time.perf_counter() - t0:.1f} s")
         if name == "blocked_press":
             check(al_total > 0, "the blocked press ran the moving-DBC AL")
+        if name == "cube_on_plate":
+            check(gs.fric_count > 0, "friction against the plate is captured")
+
+
+DRIVER_SCENE = """energy NH
+timeIntegration BE
+time 0.25 0.025
+density 1000
+stiffness 1e5 0.4
+shapes input 2
+lower.msh 0 0.01 0  0 0 0  1 1 1
+upper.msh 0 1.2 0  0 0 0  1 1 1
+selfCollisionOn
+selfFric 0.1
+meshCO plate.obj 0.5 0 0.5 4 1e10 0.2
+"""
+
+
+def _read_rows(path):
+    with open(path) as f:
+        return [line.split() for line in f if line.strip()]
+
+
+def phase_driver_path(device, n_cells=20):
+    """The scene-file driver at full width (module docstring, phase 12), in
+    build/driver_path/ of this checkout. Returns the run's tet_hv
+    launches."""
+    import os
+    import shutil
+
+    import torch
+
+    from ipc_tpu_torch import io_mesh
+    from ipc_tpu_torch.__main__ import main as cli_main
+    from ipc_tpu_torch.config import load_config
+    from ipc_tpu_torch.models.primitives import box_grid
+    from ipc_tpu_torch.ops.tet_hv import tet_hv
+    from ipc_tpu_torch.sim import Simulation
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "driver_path")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    V, T = box_grid(n_cells, n_cells, n_cells)
+    for name in ("lower.msh", "upper.msh"):
+        io_mesh.write_msh(os.path.join(workdir, name), V, T)
+    plate = np.array([[-2.0, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2]])
+    io_mesh.write_obj(os.path.join(workdir, "plate.obj"), plate, np.array([[0, 2, 1], [0, 3, 2]]))
+    scene = os.path.join(workdir, "driver.txt")
+    with open(scene, "w") as f:
+        f.write(DRIVER_SCENE)
+    out = os.path.join(workdir, "out")
+    args = ["-n", "10", "--f32", "--jit-step", "--save-every", "5"]
+    if torch.device(device).type != "cuda":  # a CPU rehearsal; the card is the default
+        args += ["--device", str(device)]
+
+    tet_hv.launches = 0
+    t0 = time.perf_counter()
+    check(cli_main([scene, "-o", out] + args) == 0, "the CLI run exits 0")
+    wall = time.perf_counter() - t0
+    launches = tet_hv.launches
+    names = ["config.txt", "iterStats.txt", "sysE.txt", "sysM.txt", "sysL.txt", "info.txt",
+             "resultsStats.txt"] + [f"{a}{k}.{b}" for k in (5, 10)
+                                    for a, b in (("status", "npz"), ("surf", "obj"))]
+    missing = [n for n in names if not os.path.exists(os.path.join(out, n))]
+    check(not missing, f"every artifact is written (missing {missing})")
+    with open(os.path.join(out, "info.txt")) as f:
+        info = json.load(f)
+    stats = info["step_stats"]
+    newton = sum(s["newton_iters"] for s in stats)
+    pcg = sum(s["pcg_iters_total"] for s in stats)
+    step_s = info["timers_sec"]["step"]
+    for i, s in enumerate(stats):
+        print(f"[driver] step {i}: newton_iters={s['newton_iters']} "
+              f"pcg_iters_total={s['pcg_iters_total']} pt/ee/et={s['pt_count']}/"
+              f"{s['ee_count']}/{s['et_count']} active_pt/ee_max={s['active_pt_max']}/"
+              f"{s['active_ee_max']} fric_count={s['fric_count']} kappa={s['kappa']:.6g} "
+              f"kappa_doublings={s['kappa_doublings']}")
+    print(f"[driver] wall seconds per step: {step_s / len(stats):.4f} (the steps: "
+          f"{step_s:.3f} s; the whole CLI call {wall:.3f} s, artifact I/O "
+          f"{info['timers_sec'].get('io', 0.0):.3f} s)")
+    print(f"[driver] wall seconds per Newton iteration: {step_s / max(newton, 1):.4f}")
+    print(f"[driver] Newton iterations: {newton}")
+    print(f"[driver] PCG iterations: {pcg}")
+    print(f"[driver] candidates pt/ee/et max: {max(s['pt_count'] for s in stats)}/"
+          f"{max(s['ee_count'] for s in stats)}/{max(s['et_count'] for s in stats)}")
+    print(f"[driver] active pairs pt/ee max: {max(s['active_pt_max'] for s in stats)}/"
+          f"{max(s['active_ee_max'] for s in stats)}")
+    print(f"[driver] friction pairs max: {max(s['fric_count'] for s in stats)}")
+    print(f"[driver] host syncs: {info['host_syncs']} ({info['host_syncs'] / len(stats):.1f} "
+          f"per step)")
+    print(f"[driver] tet_hv launches={launches} operator applications="
+          f"{info['operator_applications']}")
+    check(len(stats) == 10, "10 steps ran")
+    check(len(_read_rows(os.path.join(out, "iterStats.txt"))) == newton,
+          "one iterStats line per Newton iteration")
+    check(launches > 0 and launches == info["operator_applications"],
+          "one tet_hv launch per operator application (driver)")
+
+    # the invariants, on the saved states and a Simulation of the same file
+    sim = Simulation(load_config(scene), dtype=torch.float32, device=device)
+    sc = sim.stepper.sc
+    p0, p1 = sim.mesh_co_ranges[0]
+    n_lower = len(V)
+    check(sc.broadphase == "grid" and sc.big is not None, "the grid takes the big sweep")
+    z5, z10 = (np.load(os.path.join(out, f"status{k}.npz")) for k in (5, 10))
+    for z in (z5, z10):
+        check(all(np.isfinite(z[f]).all() for f in ("x", "v", "a")), "saved states finite")
+        check(z["x"][:n_lower, 1].min() > 0.0, "the lower box stays above the plate")
+        check(np.array_equal(z["x"][p0:p1], sim.mesh.x_rest[p0:p1].double().cpu().numpy()),
+              "the plate stays bitwise at its placement")
+    x = torch.as_tensor(z10["x"], device=device).to(torch.float32)
+    hit = bool(sc.has_intersection(x)[0])
+    dHat = sim.stepper.dHat
+    cand = sc.build_candidates(x, None, float(np.sqrt(dHat)), with_et=False)
+    fr = sc.capture_friction(x, cand, stats[-1]["kappa"], dHat)
+    on_plate = int((fr["vids"] >= p0).any(dim=1).sum())
+    print(f"[driver] end state: ymin lower box {z10['x'][:n_lower, 1].min():.6g}, "
+          f"intersection={hit}, friction pairs {fr['count']} ({on_plate} against the plate)")
+    check(not hit, "no edge-triangle intersection at the end")
+    check(on_plate > 0, "friction pairs against the plate")
+
+    # restart from status5.npz in a fresh Simulation: steps 5-9
+    restart = os.path.join(workdir, "driver_restart.txt")
+    with open(restart, "w") as f:
+        f.write(DRIVER_SCENE + f"restart {os.path.join(out, 'status5.npz')}\n")
+    out2 = os.path.join(workdir, "out_restart")
+    t0 = time.perf_counter()
+    check(cli_main([restart, "-o", out2] + args) == 0, "the restarted CLI run exits 0")
+    r10 = np.load(os.path.join(out2, "status10.npz"))
+    same = all(r10[f].tobytes() == z10[f].tobytes() for f in ("x", "v", "a"))
+    print(f"[driver] restart from status5.npz, steps 5-9 in {time.perf_counter() - t0:.3f} s: "
+          f"status10 bitwise equal={same}")
+    check(same, "a restart from status5 reproduces status10 bitwise")
+    tet_hv.launches = launches  # the restart's launches are not the main run's
+    return launches
 
 
 def main():
@@ -627,8 +793,9 @@ def main():
     contact_lead = run("contact_reference", phase_contact_reference, device)
     launches += run("twist_path", phase_twist_path, device)
     run("variants_reference", phase_variants_reference, device, contact_lead)
+    launches += run("driver_path", phase_driver_path, device)
     print(f"[phase] total {sum(s for _, s in phases):.1f} s")
-    r = records[("boxes", 20, "float32")]  # the contact path's shape and dtype
+    r = records[("driver", 20, "float32")]  # the driver path's shape and dtype
     print(json.dumps({"kernels": [dict(
         name="tet_hv", route="cuda", source="ipc_tpu_torch/csrc/tet_hv.cu",
         replaces="ipc_tpu/ops/pallas_hv.py:107", launches=launches,

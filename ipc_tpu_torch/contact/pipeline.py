@@ -11,15 +11,19 @@ Every value read back to the host (set sizes) adds to `host_syncs`.
 `ccd_method` picks ACCD ("accd") or, with "ti", the per-pair maximum of
 the interval CCD and ACCD (both conservative, so their maximum is too).
 
-Not ported yet: per-vertex friction coefficients of kinematic collision
-objects (`vert_mu`), the dense sweep of oversized primitives on the grid
-path (`_classify_big` finding any), the SPMD broad phase, and the
-full-candidate `energy/gradient/hessian_blocks/n_active/et_pairs` helpers,
-which the production step does not call. The constructor raises
-NotImplementedError for the first two.
+Kinematic collision objects: `vert_mu` (V,) holds each object vertex's
+friction coefficient (0 on deformable vertices); a friction pair touching
+one takes the largest such mu of its stencil instead of `friction`. On the
+grid path, primitives far larger than the deformable ones (an obstacle's
+plane triangles) are swept densely (`big`, spatial_hash.py).
+
+Not ported: the SPMD broad phase (multi-GPU), and the full-candidate
+`energy/gradient/hessian_blocks/n_active/et_pairs` helpers, which the
+production step does not call.
 """
 
 import math
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -81,47 +85,68 @@ class SelfContact:
     # above this many primitives per side the spatial hash replaces the
     # dense all-pairs mask (ipc_tpu/contact/pipeline.py:103)
     DENSE_LIMIT = 512
-    BIG_FACTOR = 8.0  # oversized past this x the median primitive extent
+    BIG_FACTOR = 8.0  # oversized past this x the deformable median extent
+    BIG_MAX = 512  # dense-sweep budget; only the largest qualify
 
     def __init__(self, mesh, meta, friction=0.0, vert_mu=None, broadphase=None,
                  ccd_method="accd"):
         if ccd_method not in ("accd", "ti"):
             raise ValueError(f"ccd_method={ccd_method!r}: 'accd' or 'ti'")
-        if vert_mu is not None:
-            raise NotImplementedError(
-                "vert_mu (kinematic collision objects) is not ported yet")
         self.mesh = mesh
         self.meta = meta
         self.friction = friction
         self.ccd_method = ccd_method
+        if vert_mu is not None:
+            vert_mu = torch.as_tensor(vert_mu, device=mesh.device).to(mesh.dtype)
+            if vert_mu.shape != mesh.x_rest.shape[:1]:
+                raise ValueError(f"vert_mu {tuple(vert_mu.shape)}: one value per vertex "
+                                 f"({mesh.x_rest.shape[0]})")
+        self.vert_mu = vert_mu
         nS = int(mesh.surf_tris.shape[0])
         nE = int(mesh.surf_edges.shape[0])
         nV = int(mesh.surf_verts.shape[0])
         if broadphase is None:
             broadphase = "grid" if max(nS, nE, nV) > self.DENSE_LIMIT else "dense"
         self.broadphase = broadphase
-        if broadphase == "grid" and self._has_big(mesh):
-            raise NotImplementedError(
-                "oversized primitives need the dense big-prim sweep of the grid "
-                "broad phase, which is not ported yet")
+        self.big = self._classify_big(mesh) if broadphase == "grid" else None
         self.tab = SC.SlotTables(mesh.x_rest.device, mesh.x_rest.dtype)
         self.host_syncs = 0
 
-    def _has_big(self, mesh):
-        """Whether the JAX package's `_classify_big` would find oversized
-        primitives (rest-shape extent > BIG_FACTOR x the deformable median)."""
+    def _classify_big(self, mesh):
+        """Oversized primitives from the rest shape: extent above BIG_FACTOR x
+        the median extent of the primitives that are not all-DBC (obstacle
+        primitives must not set the median they are measured against); the
+        BIG_MAX largest when more qualify, with a warning. dict(tri_ids,
+        tri_mask, edge_ids, edge_mask) on the mesh's device (None entries
+        for a family without any), or None when no primitive qualifies."""
         xr = mesh.x_rest.detach().cpu().numpy()
         dbc = mesh.dbc_mask.cpu().numpy()
-        for prims in (mesh.surf_tris.cpu().numpy(), mesh.surf_edges.cpu().numpy()):
-            if not prims.shape[0]:
-                continue
-            P = xr[prims]
-            ext = (P.max(axis=1) - P.min(axis=1)).max(axis=1)
-            free = ~dbc[prims].all(axis=1)
-            ref_ext = ext[free] if free.any() else ext
-            if (ext > self.BIG_FACTOR * max(float(np.median(ref_ext)), 1e-30)).any():
-                return True
-        return False
+        out = {}
+        for name, prims in (("tri", mesh.surf_tris.cpu().numpy()),
+                            ("edge", mesh.surf_edges.cpu().numpy())):
+            ids = mask = None
+            if prims.shape[0]:
+                P = xr[prims]
+                ext = (P.max(axis=1) - P.min(axis=1)).max(axis=1)
+                free = ~dbc[prims].all(axis=1)
+                ref_ext = ext[free] if free.any() else ext
+                thr = self.BIG_FACTOR * max(float(np.median(ref_ext)), 1e-30)
+                sel = np.nonzero(ext > thr)[0]
+                if sel.size > self.BIG_MAX:
+                    warnings.warn(
+                        f"big-prim dense sweep: {name} truncated to the largest "
+                        f"{self.BIG_MAX} of {sel.size} qualifying prims "
+                        f"({sel.size - self.BIG_MAX} oversized prims stay in the hash grid "
+                        f"and may still inflate the shared cell)")
+                    sel = sel[np.argsort(ext[sel])[-self.BIG_MAX:]]
+                if sel.size:
+                    m = np.zeros(prims.shape[0], bool)
+                    m[sel] = True
+                    ids = torch.as_tensor(np.sort(sel), device=mesh.device)
+                    mask = torch.as_tensor(m, device=mesh.device)
+            out[name + "_ids"] = ids
+            out[name + "_mask"] = mask
+        return out if any(v is not None for v in out.values()) else None
 
     # -- candidate construction ---------------------------------------------
 
@@ -140,7 +165,7 @@ class SelfContact:
         disp = self._comoving(disp)
         if self.broadphase == "grid":
             fused = SH.fused_candidates(x, mesh.surf_verts, mesh.surf_edges, mesh.surf_tris,
-                                        mesh.dbc_mask, disp, gap, with_et=with_et)
+                                        mesh.dbc_mask, disp, gap, with_et=with_et, big=self.big)
             (pt, pt_n), (ee, ee_n), (et, et_n) = fused["pt"], fused["ee"], fused["et"]
             self.host_syncs += fused["host_syncs"]
         else:
@@ -232,7 +257,7 @@ class SelfContact:
         the vertex gather-sum over their stencils (`vert_sum`) and the
         true count."""
         fr = SC.capture_friction(x, cand.pt_vids, cand.ee_vids, cand.ee_eps_x, kappa, dHat,
-                                 self.tab, self_mu=self.friction)
+                                 self.tab, self_mu=self.friction, vert_mu=self.vert_mu)
         (sel,), (cnt,) = compact(fr["lam"] > 0.0)
         self.host_syncs += 1
         out = {k: v[sel] for k, v in fr.items()}
@@ -274,7 +299,7 @@ class SelfContact:
         mesh = self.mesh
         if self.broadphase == "grid":
             pairs, n, syncs = SH.et_candidates(x, mesh.surf_edges, mesh.surf_tris,
-                                               dbc_mask=mesh.dbc_mask)
+                                               dbc_mask=mesh.dbc_mask, big=self.big)
             self.host_syncs += syncs
         else:
             pairs, n = BP.et_candidates(x, mesh.surf_edges, mesh.surf_tris,

@@ -198,11 +198,17 @@ def active_dist2(x, pt_vids, ee_vids, tab):
 # ---------------------------------------------------------------------------
 
 
-def capture_friction(x, pt_vids, ee_vids, ee_eps_x, kappa, dHat, tab, self_mu=1.0):
+def capture_friction(x, pt_vids, ee_vids, ee_eps_x, kappa, dHat, tab, self_mu=1.0,
+                     vert_mu=None):
     """Lagged friction state over ALL candidates (PT then EE), on the
     uncentered stencils as in the JAX package: vids (C,4) reduced-stencil
     global vertex ids, ctype (C,), lam (C,) >= 0 with mu folded in (zero
-    for inactive and for mollified EE pairs), coords (C,2), basis (C,3,2)."""
+    for inactive and for mollified EE pairs), coords (C,2), basis (C,3,2).
+
+    Per-pair mu: with vert_mu (V,) (kinematic objects' coefficients, 0 on
+    deformable vertices), a pair whose reduced stencil touches an object
+    vertex takes the largest such coefficient, otherwise self_mu. The
+    stencil's unused slots repeat slot 0, as in the JAX package."""
     outs = []
     for vids, slots_t, ctype_t, classify, eps in (
         (pt_vids, tab.pt_slots, tab.pt_ctype, D.dtype_PT, None),
@@ -221,10 +227,15 @@ def capture_friction(x, pt_vids, ee_vids, ee_eps_x, kappa, dHat, tab, self_mu=1.
         outs.append((torch.take_along_dim(vids, slots, dim=1), ct, lam,
                      FR.closest_point_coords(ct, xs), FR.tangent_basis(ct, xs)))
     (pv, pc, pl, pco, pb), (ev, ec, el, eco, eb) = outs
+    vids = torch.cat([pv, ev])
+    mu = self_mu
+    if vert_mu is not None:
+        co_mu = vert_mu[vids].amax(dim=1)
+        mu = torch.where(co_mu > 0.0, co_mu, torch.full_like(co_mu, self_mu))
     return dict(
-        vids=torch.cat([pv, ev]),
+        vids=vids,
         ctype=torch.cat([pc, ec]),
-        lam=torch.cat([pl, el]) * self_mu,
+        lam=torch.cat([pl, el]) * mu,
         coords=torch.cat([pco, eco]),
         basis=torch.cat([pb, eb]),
     )

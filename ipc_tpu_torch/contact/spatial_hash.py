@@ -30,9 +30,22 @@ they do not move the grid's origin or cell size. Host reads: one for the
 expansion sizes (and the coordinate-range check), one for the kept counts;
 one more when the expansion is split into chunks (`budget`).
 
-Not ported yet: the dense sweep of oversized ("big") primitives and the
-SPMD ring query (`fused_candidates_spmd`); `SelfContact` refuses scenes
-that need the first.
+Oversized ("big") primitives (ipc_tpu/contact/spatial_hash.py:453-910):
+one kinematic plane triangle would set the cell size until every
+deformable primitive shares a handful of cells. `SelfContact._classify_big`
+names them once from the rest shape; `big` = dict(tri_ids, tri_mask,
+edge_ids, edge_mask) (None entries where a family has none). They stay out
+of the geometry, the registries and the query rows, and a dense sweep
+tests every query primitive against each of them: one masked (Q, B)
+product, chunked over Q, with the same AABB, validity and reach tests.
+Its pairs join the grid's before the one sort, so grid plus sweep returns
+the dense path's pairs in the dense path's order (an edge-edge pair as
+(lower, higher) id). The passes, complete and disjoint with the grid's
+small x small pairs: PT vertices x big triangles; EE all edges x big edges
+(a big-big pair once); ET all edges x big triangles, then small triangles
+x big edges.
+
+Not ported: the SPMD ring query (`fused_candidates_spmd`, multi-GPU).
 """
 
 import torch
@@ -51,15 +64,19 @@ def _finite(boxes):
     return torch.isfinite(boxes).all(dim=2).all(dim=1)
 
 
-def grid_geometry(*box_groups):
+def grid_geometry(*box_groups, excludes=None):
     """(origin (3,), cell 0-d) shared by several AABB sets; non-finite
-    boxes are left out of both."""
+    boxes, and those of `excludes` (per-group bool masks or None), are left
+    out of both."""
     ref = box_groups[0]
     exts, los = [], []
-    for b in box_groups:
+    for b, ex in zip(box_groups, excludes or (None,) * len(box_groups)):
         if b.shape[0] == 0:
             continue
-        fin = _finite(b)[:, None]
+        fin = _finite(b)
+        if ex is not None:
+            fin = fin & ~ex
+        fin = fin[:, None]
         exts.append(torch.where(fin, b[:, 1] - b[:, 0], torch.zeros_like(b[:, 0])).amax())
         los.append(torch.where(fin, b[:, 0], torch.full_like(b[:, 0], float("inf")))
                    .amin(dim=0))
@@ -74,11 +91,13 @@ def grid_geometry(*box_groups):
 
 class _Cells:
     """Cells of one AABB set: i0 (N,3) int64, corner keys (N,8), corner ok
-    (N,8) (a real, distinct cell of a finite box), and the largest cell
-    coordinate (0-d, for the range check)."""
+    (N,8) (a real, distinct cell of a finite box not in `exclude`), and the
+    largest cell coordinate (0-d, for the range check)."""
 
-    def __init__(self, boxes, origin, cell):
+    def __init__(self, boxes, origin, cell, exclude=None):
         fin = _finite(boxes)
+        if exclude is not None:
+            fin = fin & ~exclude
         b = torch.where(fin[:, None, None], boxes, origin.expand_as(boxes))
         i0 = torch.floor((b[:, 0] - origin) / cell).to(torch.int64)
         i1 = torch.floor((b[:, 1] - origin) / cell).to(torch.int64)
@@ -160,18 +179,19 @@ def _chunks(fam, total):
     return [(a, b, sb - sa) for (a, sa), (b, sb) in zip(bounds, bounds[1:]) if b > a], 1
 
 
-def _run(families, gap, tops):
+def _run(families, gap, tops, swept=None):
     """Pairs of every family: list of ((n,2) int64, n), and the host reads
-    made."""
+    made. swept: per family, the key tensors of its dense big sweep."""
     totals = torch.stack([f.n.sum() for f in families] + [torch.stack(tops).amax()]).tolist()
     syncs = 1
     if totals[-1] >= (1 << _BITS):
         raise ValueError("broad phase: a cell coordinate exceeds the grid key's 21 bits")
     keys = []
-    for f, total in zip(families, totals[:-1]):
+    for i, (f, total) in enumerate(zip(families, totals[:-1])):
         chunks, s = _chunks(f, total)
         syncs += s
-        keys.append([f.keys(a, b, size, gap) for a, b, size in chunks if size > 0])
+        keys.append([f.keys(a, b, size, gap) for a, b, size in chunks if size > 0]
+                    + (swept[i] if swept else []))
     counts = [[(k != _BIG).sum() for k in ks] for ks in keys]
     flat = [c for cs in counts for c in cs]
     flat = torch.stack(flat).tolist() if flat else []
@@ -226,44 +246,140 @@ def _et_valid(surf_edges, surf_tris, dbc_mask):
     return valid
 
 
+def _ee_dense_valid(surf_edges, dbc_mask, edge_big):
+    """EE validity of the dense pass (t a big edge): a big-big pair once
+    (q < t), a small-big pair whatever the order."""
+    base = _ee_valid(surf_edges, dbc_mask)
+
+    def valid(q, t):
+        return base(torch.minimum(q, t), torch.maximum(q, t)) & (~edge_big[q] | (q < t))
+
+    return valid
+
+
+def _te_dense_valid(surf_edges, surf_tris, dbc_mask, tri_big):
+    """Triangle (q) against big edge (t): the ET validity; big triangles
+    left out (the all-edges x big-triangles pass has them)."""
+    base = _et_valid(surf_edges, surf_tris, dbc_mask)
+
+    def valid(q, t):
+        ok = base(t, q)
+        return ok if tri_big is None else ok & ~tri_big[q]
+
+    return valid
+
+
+def _dense_keys(q_boxes, q_motion, t_ids, t_boxes, t_motion, valid_fn, gap, key_fn):
+    """The dense sweep of one family: every query row q against each big
+    target t of `t_ids` (B of them), in chunks of at most BUDGET pairs.
+    Returns a list of key tensors, key_fn(q, t) for a kept pair and _BIG
+    for a rejected one; the tests are the grid's (AABB overlap in the
+    working dtype, validity, float32 reach)."""
+    Q, B = int(q_boxes.shape[0]), int(t_ids.shape[0])
+    dev = t_ids.device
+    out = []
+    rows = max(1, BUDGET // max(B, 1))
+    for a in range(0, Q if B else 0, rows):
+        n = min(Q, a + rows) - a
+        q = torch.arange(a, a + n, dtype=torch.int64, device=dev).repeat_interleave(B)
+        j = torch.arange(B, dtype=torch.int64, device=dev).repeat(n)
+        t = t_ids[j]
+        qb, tb = q_boxes[q], t_boxes[j]
+        sep = ((qb[:, 0] > tb[:, 1]) | (tb[:, 0] > qb[:, 1])).any(dim=-1)
+        qm = [m[q] for m in q_motion]
+        tm = [m[j] for m in t_motion]
+        keep = ~sep & valid_fn(q, t) & BP.reach_ok(*qm, *tm, gap)
+        out.append(torch.where(keep, key_fn(q, t), torch.full_like(q, _BIG)))
+    return out
+
+
+def _gather(m, ids):
+    return [a[ids] for a in m]
+
+
+def _big_parts(big):
+    """(tri_ids, tri_mask, edge_ids, edge_mask) of a `big` dict or None."""
+    if not big:
+        return None, None, None, None
+    return big.get("tri_ids"), big.get("tri_mask"), big.get("edge_ids"), big.get("edge_mask")
+
+
+def _et_dense(eb, em, tb, tm, surf_edges, surf_tris, dbc_mask, big, gap):
+    """The two dense ET passes: all edges x big triangles, then small
+    triangles x big edges (keys edge * nS + triangle)."""
+    bt_ids, bt_mask, be_ids, _ = _big_parts(big)
+    nS = int(surf_tris.shape[0])
+    keys = []
+    if bt_ids is not None:
+        keys += _dense_keys(eb, em, bt_ids, tb[bt_ids], _gather(tm, bt_ids),
+                           _et_valid(surf_edges, surf_tris, dbc_mask), gap,
+                           lambda q, t: q * nS + t)
+    if be_ids is not None:
+        keys += _dense_keys(tb, tm, be_ids, eb[be_ids], _gather(em, be_ids),
+                           _te_dense_valid(surf_edges, surf_tris, dbc_mask, bt_mask), gap,
+                           lambda q, t: t * nS + q)
+    return keys
+
+
 def fused_candidates(x, surf_verts, surf_edges, surf_tris, dbc_mask, disp=None, gap=0.0,
-                     with_et=True):
+                     with_et=True, big=None):
     """One broad phase serving the three queries of a Newton iteration:
     one shared geometry, one triangle registry (PT and ET queries) and one
-    edge registry (EE). Returns dict(pt=(pairs, n), ee=(pairs, n),
-    et=(pairs, n), host_syncs=int); with_et=False gives an empty ET set."""
+    edge registry (EE), plus the dense sweep of the `big` primitives.
+    Returns dict(pt=(pairs, n), ee=(pairs, n), et=(pairs, n),
+    host_syncs=int); with_et=False gives an empty ET set."""
     vb = BP.vert_aabbs(x, surf_verts, disp, gap)
     eb = BP.edge_aabbs(x, surf_edges, disp, gap)
     tb = BP.tri_aabbs(x, surf_tris, disp, gap)
     vm = BP.prim_motion(x, surf_verts, disp)
     em = BP.prim_motion(x, surf_edges, disp)
     tm = BP.prim_motion(x, surf_tris, disp)
-    origin, cell = grid_geometry(vb, eb, tb)
-    vc, ec, tc = (_Cells(b, origin, cell) for b in (vb, eb, tb))
+    bt_ids, bt_mask, be_ids, be_mask = _big_parts(big)
+    origin, cell = grid_geometry(vb, eb, tb, excludes=(None, be_mask, bt_mask))
+    vc = _Cells(vb, origin, cell)
+    ec = _Cells(eb, origin, cell, be_mask)
+    tc = _Cells(tb, origin, cell, bt_mask)
     treg, ereg = _Registry(tc), _Registry(ec)
     nS, nE = int(surf_tris.shape[0]), int(surf_edges.shape[0])
+    pt_valid = _pt_valid(surf_verts, surf_tris, dbc_mask)
     fams = [
-        _Family(vc, treg, vb, tb, vm, tm, _pt_valid(surf_verts, surf_tris, dbc_mask), nS),
+        _Family(vc, treg, vb, tb, vm, tm, pt_valid, nS),
         _Family(ec, ereg, eb, eb, em, em, _ee_valid(surf_edges, dbc_mask), nE),
     ]
     if with_et:
         fams.append(_Family(ec, treg, eb, tb, em, tm,
                             _et_valid(surf_edges, surf_tris, dbc_mask), nS))
-    out, syncs = _run(fams, gap, [vc.top, ec.top, tc.top])
+    swept = None
+    if big:
+        swept = [[], []]
+        if bt_ids is not None:
+            swept[0] = _dense_keys(vb, vm, bt_ids, tb[bt_ids], _gather(tm, bt_ids), pt_valid,
+                                  gap, lambda q, t: q * nS + t)
+        if be_ids is not None:
+            swept[1] = _dense_keys(eb, em, be_ids, eb[be_ids], _gather(em, be_ids),
+                                  _ee_dense_valid(surf_edges, dbc_mask, be_mask), gap,
+                                  lambda q, t: torch.minimum(q, t) * nE + torch.maximum(q, t))
+        if with_et:
+            swept.append(_et_dense(eb, em, tb, tm, surf_edges, surf_tris, dbc_mask, big, gap))
+    out, syncs = _run(fams, gap, [vc.top, ec.top, tc.top], swept)
     if not with_et:
         out.append((torch.zeros((0, 2), dtype=torch.int64, device=x.device), 0))
     return dict(pt=out[0], ee=out[1], et=out[2], host_syncs=syncs)
 
 
-def et_candidates(x, surf_edges, surf_tris, disp=None, gap=0.0, dbc_mask=None):
-    """Edge-triangle pairs alone: ((n,2) int64, n, host_syncs)."""
+def et_candidates(x, surf_edges, surf_tris, disp=None, gap=0.0, dbc_mask=None, big=None):
+    """Edge-triangle pairs alone (with the dense sweep of the `big`
+    primitives): ((n,2) int64, n, host_syncs)."""
     eb = BP.edge_aabbs(x, surf_edges, disp, gap)
     tb = BP.tri_aabbs(x, surf_tris, disp, gap)
     em = BP.prim_motion(x, surf_edges, disp)
     tm = BP.prim_motion(x, surf_tris, disp)
-    origin, cell = grid_geometry(eb, tb)
-    ec, tc = _Cells(eb, origin, cell), _Cells(tb, origin, cell)
+    _, bt_mask, _, be_mask = _big_parts(big)
+    origin, cell = grid_geometry(eb, tb, excludes=(be_mask, bt_mask))
+    ec, tc = _Cells(eb, origin, cell, be_mask), _Cells(tb, origin, cell, bt_mask)
     fam = _Family(ec, _Registry(tc), eb, tb, em, tm,
                   _et_valid(surf_edges, surf_tris, dbc_mask), int(surf_tris.shape[0]))
-    (res,), syncs = _run([fam], gap, [ec.top, tc.top])
+    swept = [_et_dense(eb, em, tb, tm, surf_edges, surf_tris, dbc_mask, big, gap)] if big \
+        else None
+    (res,), syncs = _run([fam], gap, [ec.top, tc.top], swept)
     return res[0], res[1], syncs

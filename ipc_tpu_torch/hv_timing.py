@@ -4,8 +4,10 @@ plain version and a library yardstick.
     python -m ipc_tpu_torch.hv_timing
 
 prints one JSON object per (scene, n, dtype): the two-box scene's
-topology at n_cells 8 and 20 (6,144 and 96,000 tets) and the mat-twist
-scene's at n = 100 (60,000 tets, 20,402 vertices), with seeded random
+topology at n_cells 8 and 20 (6,144 and 96,000 tets), the mat-twist
+scene's at n = 100 (60,000 tets, 20,402 vertices) and the driver scene's
+(the boxes at n_cells 20 over a meshCO plate: its 4 tet-less vertices
+have degree 0, so their table rows are all padding), with seeded random
 SPD-like H blocks and v rows (a fifth of them zeroed, as DBC rows are):
 
   max_abs_err, limit  kernel vs plain version, and the tolerance (1e-5 in
@@ -28,6 +30,8 @@ SPD-like H blocks and v rows (a fifth of them zeroed, as DBC rows are):
                       bound over kernel time
   empty_ms            the same timing of a call that launches nothing: the
                       floor of the method
+  tetless_zero        the driver scene only: the tet-less vertices' rows of
+                      the kernel's result are exact zeros (else null)
   split_us            mean device microseconds per call of each kernel the
                       call launches (torch.profiler, L2 flushed between
                       calls); a kernel that waits on another (a programmatic
@@ -99,12 +103,14 @@ def kernel_split_us(fn, flush):
     return out
 
 
-SCENES = (("boxes", 8), ("boxes", 20), ("twist", 100))
+SCENES = (("boxes", 8), ("boxes", 20), ("twist", 100), ("driver", 20))
+DRIVER_TETLESS = 4  # the driver scene's plate: two triangles, four vertices
 
 
 def hv_problem(n_cells, scene="boxes"):
-    """Numpy inputs at a scene's topology (the two-box scene at n_cells, or
-    the mat-twist scene at n = n_cells), seeded by n_cells: tets (T,4),
+    """Numpy inputs at a scene's topology (the two-box scene at n_cells,
+    the mat-twist scene at n = n_cells, or the driver scene: the boxes plus
+    DRIVER_TETLESS tet-less vertices), seeded by n_cells: tets (T,4),
     n_verts, H (T,12,12) SPD-like, v (V,3) with a fifth of its rows
     zeroed."""
     from ipc_tpu_torch import scenes
@@ -112,7 +118,7 @@ def hv_problem(n_cells, scene="boxes"):
     build = scenes.build_twist_scene if scene == "twist" else scenes.build_scene
     st = build(n_cells, torch.float64, "cpu")
     tets = st.mesh.tets.numpy()
-    n_verts = int(st.mesh.x_rest.shape[0])
+    n_verts = int(st.mesh.x_rest.shape[0]) + (DRIVER_TETLESS if scene == "driver" else 0)
     rng = np.random.default_rng(n_cells)
     M = rng.normal(size=(tets.shape[0], 12, 12))
     H = M @ np.swapaxes(M, 1, 2) / 12.0
@@ -158,6 +164,8 @@ def measure(n_cells, dtype, device, scene="boxes"):
     torch.cuda.synchronize()
     err = (out - plain).abs().max().item()
     scale = plain.abs().max().item()
+    tetless_zero = (bool((out[n_verts - DRIVER_TETLESS:] == 0).all()) if scene == "driver"
+                    else None)
 
     flush_buf = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
 
@@ -194,6 +202,7 @@ def measure(n_cells, dtype, device, scene="boxes"):
         assembly_ms=statistics.median(asm), nnz=int(A.values().numel()),
         bytes=nbytes, flops=flops, bound_us=bound_us, bound_by=bound_by,
         share_of_bound=bound_us / (1e3 * kernel_ms), empty_ms=empty_ms, split_us=split_us,
+        tetless_zero=tetless_zero,
     )
 
 

@@ -1,15 +1,17 @@
 """Tet mesh + embedded surface state as tensors.
 
-Port of ipc_tpu/mesh.py:40-216, 306-328. The host side is the same numpy
-code (copied, not imported: ipc_tpu.mesh imports jax), including the
-reorientation and the stable sort of tets by minimum vertex id, so tet order
-matches the JAX mesh exactly. Index fields are int64 (torch's index type);
-the CUDA kernel's int32 tables are built beside it (ops/tet_hv.py).
+Port of ipc_tpu/mesh.py. The host side is the same numpy code (copied, not
+imported: ipc_tpu.mesh imports jax), including the reorientation and the
+stable sort of tets by minimum vertex id, so tet order matches the JAX mesh
+exactly. Index fields are int64 (torch's index type); the CUDA kernel's
+int32 tables are built beside it (ops/tet_hv.py).
 
-Not ported yet: append_kinematic_surface (kinematic collision objects).
+`append_kinematic_surface` adds a kinematic collision object (the scene
+file's codimensional shapes and `meshCO` obstacles) as tet-less,
+Dirichlet-constrained surface vertices on the mesh's device.
 """
 
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field, fields, replace
 
 import numpy as np
 import torch
@@ -22,6 +24,7 @@ __all__ = [
     "build_mesh",
     "lame_params",
     "merge_meshes",
+    "append_kinematic_surface",
 ]
 
 
@@ -197,6 +200,66 @@ def build_mesh(
     arrays, meta = mesh_arrays(V, T, density, ym, pr, dbc_mask, vert_comp,
                                comp_ranges)
     return mesh_from_arrays(arrays, resolve_device(device), dtype), meta
+
+
+def append_kinematic_surface(mesh, meta, V_co, tris=None, edges=None):
+    """Append a kinematic collision object's surface to the scene mesh (the
+    JAX package's MeshCO<3> counterpart): its vertices join the vertex array
+    as tet-less, Dirichlet-constrained surface geometry with the scene's
+    average node mass and a new component id, so the one self-contact
+    pipeline handles deformable-vs-object contacts (object-vs-object pairs
+    are all-DBC and filtered out). Edges default to the triangles' unique
+    edges. The bbox grows; bbox_diag2 stays the deformable one (dHat and
+    kappa scale with it).
+
+    Returns (new MeshData on the mesh's device, new MeshMeta,
+    (v_start, v_end) of the object's vertices)."""
+    device, dtype = mesh.device, mesh.dtype
+    V_co = np.asarray(V_co, dtype=np.float64)
+    n_old = int(mesh.x_rest.shape[0])
+    n_co = len(V_co)
+
+    tris = np.zeros((0, 3), np.int64) if tris is None else np.asarray(tris, np.int64)
+    if edges is None:
+        e = np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [2, 0]]], axis=0)
+        edges = np.unique(np.sort(e, axis=1), axis=0) if len(e) else np.zeros((0, 2), np.int64)
+    else:
+        edges = np.asarray(edges, np.int64)
+    sv_co = (
+        np.unique(np.concatenate([tris.reshape(-1), edges.reshape(-1)]))
+        if (len(tris) or len(edges))
+        else np.arange(n_co)
+    )
+
+    def ids(a):
+        return torch.as_tensor(np.asarray(a, np.int64) + n_old, device=device)
+
+    comp_id = int(mesh.vert_comp.max()) + 1 if n_old else 0
+    new_mesh = replace(
+        mesh,
+        x_rest=torch.cat([mesh.x_rest, torch.as_tensor(V_co, device=device).to(dtype)]),
+        mass=torch.cat([mesh.mass, torch.full((n_co,), meta.avg_node_mass, dtype=dtype,
+                                              device=device)]),
+        surf_tris=torch.cat([mesh.surf_tris, ids(tris)]),
+        surf_edges=torch.cat([mesh.surf_edges, ids(edges)]),
+        surf_verts=torch.cat([mesh.surf_verts, ids(sv_co)]),
+        dbc_mask=torch.cat([mesh.dbc_mask, torch.ones((n_co,), dtype=torch.bool,
+                                                      device=device)]),
+        vert_comp=torch.cat([mesh.vert_comp, torch.full((n_co,), comp_id, dtype=torch.int64,
+                                                        device=device)]),
+    )
+    new_meta = MeshMeta(
+        n_verts=n_old + n_co,
+        n_tets=meta.n_tets,
+        bbox=np.stack([np.minimum(meta.bbox[0], V_co.min(axis=0)),
+                       np.maximum(meta.bbox[1], V_co.max(axis=0))]) if n_co else meta.bbox,
+        bbox_diag2=meta.bbox_diag2,
+        avg_edge_len=meta.avg_edge_len,
+        avg_node_mass=meta.avg_node_mass,
+        comp_ranges=meta.comp_ranges + [(n_old, n_old + n_co)],
+        dbc_is_zero=meta.dbc_is_zero,
+    )
+    return new_mesh, new_meta, (n_old, n_old + n_co)
 
 
 def merge_meshes(parts):

@@ -133,7 +133,7 @@ class IPCStepper:
         else:
             self.voxel = float(np.sqrt(meta.bbox_diag2)) / 3.0
         self._solve_fric = any(hs.params.friction > 0.0 for hs in self.halfspaces) or (
-            self.sc is not None and self.sc.friction > 0.0)
+            self.sc is not None and (self.sc.friction > 0.0 or self.sc.vert_mu is not None))
 
     def suggest_kappa(self, dHat):
         """Host-float C2 barrier Hessian at d = 1e-16 bboxDiag^2 (exact f64

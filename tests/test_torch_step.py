@@ -19,7 +19,6 @@ import ast
 import os
 import subprocess
 import sys
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -119,22 +118,19 @@ def _mesh_seq_script(n_verts):
 
 
 # make_step refuses exactly these: burst= (any value, 0 included), the host
-# path's linear solvers, per-vertex friction of kinematic mesh objects, and
-# mesh-sequence scripts (ValueError, as make_jit_step)
+# path's linear solvers, and mesh-sequence scripts (ValueError, as
+# make_jit_step)
 @pytest.mark.parametrize("change", [
     dict(params=SimParams(linsys="dense")),
     dict(params=SimParams(linsys="sparse")),
     dict(burst=4),
     dict(burst=0),
-    dict(sc=SimpleNamespace(vert_mu=np.ones(1), ccd_method="accd")),
     dict(script="mesh_seq"),
 ])
 def test_make_step_rejects_outside_the_slice(change):
     st = build_scene(1, torch.float64, "cpu")
     if "params" in change:
         st = IPCStepper(st.mesh, st.meta, change["params"], halfspaces=st.halfspaces)
-    if "sc" in change:
-        st.sc = change["sc"]
     error = NotImplementedError
     if "script" in change:
         st = IPCStepper(st.mesh, st.meta, st.p, halfspaces=st.halfspaces,
@@ -151,11 +147,19 @@ def test_make_step_rejects_outside_the_slice(change):
     dict(params=SimParams(coarse_precond=False)),
     dict(ccd_method="ti"),
     dict(script=True),
-], ids=["newmark", "fcr", "damping", "no_coarse", "ccd_ti", "script"])
+    dict(vert_mu=0.2),
+], ids=["newmark", "fcr", "damping", "no_coarse", "ccd_ti", "script", "vert_mu"])
 def test_make_step_accepts_the_variants(change):
-    st = build_scene(1, torch.float64, "cpu", with_contact="ccd_method" in change)
-    sc = (SelfContact(st.mesh, st.meta, friction=0.1, ccd_method=change["ccd_method"])
-          if "ccd_method" in change else None)
+    contact = "ccd_method" in change or "vert_mu" in change
+    st = build_scene(1, torch.float64, "cpu", with_contact=contact)
+    sc = None
+    if contact:
+        # per-vertex friction (kinematic objects) on the upper box's vertices
+        n = int(st.mesh.x_rest.shape[0])
+        vert_mu = np.where(np.arange(n) >= n // 2, change.get("vert_mu", 0.0), 0.0)
+        sc = SelfContact(st.mesh, st.meta, friction=0.1,
+                         ccd_method=change.get("ccd_method", "accd"),
+                         vert_mu=vert_mu if "vert_mu" in change else None)
     script = None
     if "script" in change:
         n = int(st.mesh.x_rest.shape[0])
@@ -167,13 +171,17 @@ def test_make_step_accepts_the_variants(change):
 
 
 def test_self_contact_scene_not_yet_ported():
-    """The bench scene's self-contact is ported, Tight-Inclusion CCD
-    included; what waits for a later slice (per-vertex friction of
-    kinematic objects) is refused, not silently replaced."""
+    """The bench scene's self-contact is ported, Tight-Inclusion CCD and
+    per-vertex friction of kinematic objects included (one coefficient per
+    vertex, in the mesh's dtype and device); an unknown CCD method and a
+    vert_mu of the wrong length are refused."""
     st = build_scene(2, torch.float64, "cpu", with_contact=True)
     assert st.sc is not None and st.sc.broadphase == "dense"
     assert SelfContact(st.mesh, st.meta, friction=0.1, ccd_method="ti").ccd_method == "ti"
-    with pytest.raises(NotImplementedError):
+    n = int(st.mesh.x_rest.shape[0])
+    sc = SelfContact(st.mesh, st.meta, friction=0.1, vert_mu=np.full(n, 0.3))
+    assert sc.vert_mu.dtype == torch.float64 and sc.vert_mu.shape == (n,)
+    with pytest.raises(ValueError):
         SelfContact(st.mesh, st.meta, friction=0.1, vert_mu=np.ones(1))
     with pytest.raises(ValueError):
         SelfContact(st.mesh, st.meta, friction=0.1, ccd_method="ctcd")
@@ -197,6 +205,9 @@ def test_port_never_imports_jax():
         "st = build_twist_scene(3, 'float64', 'cpu')\n"
         "s, stats = make_step(st)(st.initial_state())\n"
         "assert stats.script_scale == 1.0\n"
+        "import ipc_tpu_torch.__main__, ipc_tpu_torch.sim, ipc_tpu_torch.config\n"
+        "import ipc_tpu_torch.io_mesh, ipc_tpu_torch.utils.observability\n"
+        "import ipc_tpu_torch.utils.render\n"
         "sys.modules.pop('jax')\n"
         "sys.modules.pop('ipc_tpu')\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ipc_tpu')\n"

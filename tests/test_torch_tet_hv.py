@@ -192,3 +192,31 @@ def test_kernel_matches_plain(cuda_device, shape, dtype, rel_tol):
     assert err <= rel_tol * plain.abs().max().item()
     assert torch.equal(out, again)
     assert torch.all(out[-1] == 0)
+
+
+def _tetless_problem(dtype, device="cpu"):
+    """The n_cells=4 scene's tets with four tet-less vertices appended (a
+    kinematic obstacle's rows: degree 0, their table rows all padding)."""
+    tets, n = _scene_tets(4)
+    return n, _problem(None, dtype, seed=5, device=device, topology=(tets, n + 4))
+
+
+def test_tetless_rows_are_all_padding():
+    n, (tets, _, _, table, Ht, vt) = _tetless_problem(torch.float64)
+    assert table.n_verts == n + 4
+    assert bool((table.inc[n:] == 4 * tets.shape[0]).all())
+    out = tet_hv(Ht, vt, table)
+    assert bool((out[n:] == 0).all()) and bool(out[:n].abs().max() > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_kernel_writes_zeros_for_tetless_vertices(cuda_device, dtype, rel_tol):
+    n, (_, _, _, table, Ht, vt) = _tetless_problem(dtype, cuda_device)
+    out = tet_hv(Ht, vt, table)
+    again = tet_hv(Ht, vt, table)
+    plain = tet_hv_reference(Ht, table.tets, vt, table.gsum)
+    torch.cuda.synchronize()
+    assert torch.all(out[n:] == 0) and torch.equal(out, again)
+    err = (out[:n] - plain[:n]).abs().max().item()
+    assert err <= rel_tol * plain.abs().max().item()
