@@ -72,7 +72,7 @@ and ends the run with a non-zero exit code (nothing is caught):
      mat(4) (4 steps) and a box_grid(3) cube on a two-triangle kinematic
      plate (3 steps; grid broad phase with the dense sweep of the plate's
      oversized primitives, selfFric 0 and plate mu 0.2);
- 12. driver path, this slice's path: a scene file run through the port's
+ 12. driver path: a scene file run through the port's
      CLI entry point (ipc_tpu_torch.__main__.main, in this process):
      two box_grid(20) boxes written as .msh files (96,000 tets), NH, BE,
      dt 0.025, selfCollisionOn, selfFric 0.1, no ground but a meshCO
@@ -85,12 +85,48 @@ and ends the run with a non-zero exit code (nothing is caught):
      plate, tet_hv launched once per operator application (counts zeroed
      just before). Then a second scene file restarts from status5.npz in
      a fresh Simulation and runs steps 5-9: its status10.npz must equal
-     the first run's bitwise.
+     the first run's bitwise;
+ 13. host path: the same scene file through the same
+     CLI entry point without --jit-step, so the host-path stepper
+     (IPCStepper.step: a fresh broad phase every Newton iteration, the
+     host line search, the global intersection test) runs it: `-n 10
+     --f32 --save-every 5`. Per step: Newton (search directions), line
+     searches, PCG iterations, kappa doublings, intersection backtracks,
+     sweep clamps, operator applications, host syncs, wall seconds; after
+     every step (outside its time): finite, no edge-triangle intersection,
+     the lower box above the plate. Over the run: tet_hv launched once per
+     operator application (counts zeroed just before), info.txt's host
+     syncs equal the steps', iterStats.txt one line per line-searched
+     iteration, status10.npz finite with the plate in place, and one step
+     taken twice from status5.npz in a fresh Simulation bitwise equal;
+ 14. host reference: host steps in float64 on the card against the CPU,
+     each from the CPU's state (held as phase 9 holds a device step: every
+     count, intersection backtracks and sweep clamps too, equal or within
+     the CPU's own 1-ulp change, and the planes compared; the blocked
+     press's AL step is such an ill-conditioned one): a cube dropping
+     onto the ground (3 steps), the
+     n_cells=2 boxes' step 8 from the device step's state before it (as
+     phase 9's), warm_start=5
+     (1), linsys "dense" and "sparse" (1 each), the fricDHat homotopy
+     (fric_dhat0_rel 4x its target, 2), the ACO squashshear planes (3) and
+     the blocked press through the moving-DBC AL (2). The CPU's steps and
+     their 1-ulp responses run in two single-threaded worker processes
+     started after phase 2; the card's steps run in a child process on the
+     same card beside phases 5, 9 and 11. Both are stopped when the run
+     ends.
+
+Order: the timed phases 1-4, 6-8, 10, 12 and 13 run first, alone on the
+card; then the references 5, 9 and 11, with 14 beside them.
 
 The line before the last is the kernels record (its launches: the
-contact, twist and driver paths', at the driver shape), the last line
-{"ok": true, "device": {...}}. Without a CUDA device the run fails in
-phase 1 and prints neither.
+contact, twist, driver and host paths', at the driver shape), the last
+line {"ok": true, "device": {...}}. Without a CUDA device the run fails
+in phase 1 and prints neither.
+
+`python3 chip_smoke.py --only host_path,host_reference` runs the device
+and build phases and the phases named (a check of a few phases; its
+kernels line counts only their launches and times the kernel at the
+driver shape alone).
 """
 
 import json
@@ -372,23 +408,37 @@ def phase_bench_timing(device):
     check(not bool(hit), "no intersection in the bench scene")
 
 
-def phase_contact_reference(device):
-    """Steps 8-9 of the contact scene, card against CPU (_hold). Returns
-    the CPU's state before step 8 (numpy), which the variants reference
-    reuses."""
+def _contact_lead(cpu_step=None):
+    """The contact scene's state before step 8 (numpy): 8 device steps of
+    build_scene(2, float64, with_contact=True) on the CPU."""
     import torch
 
     from ipc_tpu_torch.convert import state_to_numpy
     from ipc_tpu_torch.jit_step import make_step
     from ipc_tpu_torch.scenes import build_scene
 
-    cpu_st = build_scene(2, torch.float64, "cpu", with_contact=True)
-    cpu_step = make_step(cpu_st)
-    card_step = make_step(build_scene(2, torch.float64, device, with_contact=True))
-    s = cpu_st.initial_state()
+    st = build_scene(2, torch.float64, "cpu", with_contact=True)
+    cpu_step = cpu_step or make_step(st)
+    s = st.initial_state()
     for _ in range(8):
         s, _ = cpu_step(s)
-    lead = state_to_numpy(s)
+    return state_to_numpy(s)
+
+
+def phase_contact_reference(device):
+    """Steps 8-9 of the contact scene, card against CPU (_hold). Returns
+    the CPU's state before step 8 (numpy), which the variants reference
+    reuses."""
+    import torch
+
+    from ipc_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from ipc_tpu_torch.jit_step import make_step
+    from ipc_tpu_torch.scenes import build_scene
+
+    cpu_step = make_step(build_scene(2, torch.float64, "cpu", with_contact=True))
+    card_step = make_step(build_scene(2, torch.float64, device, with_contact=True))
+    lead = _contact_lead(cpu_step)
+    s = state_from_numpy(lead, "cpu", torch.float64)
     rng = np.random.default_rng(2)
     for i in range(8, 10):
         s, gs = _hold(f"contact-ref n_cells=2 float64 step {i}", cpu_step, card_step,
@@ -656,33 +706,44 @@ def _read_rows(path):
         return [line.split() for line in f if line.strip()]
 
 
-def phase_driver_path(device, n_cells=20):
-    """The scene-file driver at full width (module docstring, phase 12), in
-    build/driver_path/ of this checkout. Returns the run's tet_hv
-    launches."""
+def _driver_scene_files(name, n_cells):
+    """build/<name>/ of this checkout, emptied, with the driver scene:
+    lower.msh and upper.msh (box_grid(n_cells)), plate.obj and driver.txt.
+    Returns (workdir, scene path, one box's vertices)."""
     import os
     import shutil
 
-    import torch
-
     from ipc_tpu_torch import io_mesh
-    from ipc_tpu_torch.__main__ import main as cli_main
-    from ipc_tpu_torch.config import load_config
     from ipc_tpu_torch.models.primitives import box_grid
-    from ipc_tpu_torch.ops.tet_hv import tet_hv
-    from ipc_tpu_torch.sim import Simulation
 
-    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "driver_path")
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", name)
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     V, T = box_grid(n_cells, n_cells, n_cells)
-    for name in ("lower.msh", "upper.msh"):
-        io_mesh.write_msh(os.path.join(workdir, name), V, T)
+    for mesh_name in ("lower.msh", "upper.msh"):
+        io_mesh.write_msh(os.path.join(workdir, mesh_name), V, T)
     plate = np.array([[-2.0, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2]])
     io_mesh.write_obj(os.path.join(workdir, "plate.obj"), plate, np.array([[0, 2, 1], [0, 3, 2]]))
     scene = os.path.join(workdir, "driver.txt")
     with open(scene, "w") as f:
         f.write(DRIVER_SCENE)
+    return workdir, scene, V
+
+
+def phase_driver_path(device, n_cells=20):
+    """The scene-file driver at full width (module docstring, phase 12), in
+    build/driver_path/ of this checkout. Returns the run's tet_hv
+    launches."""
+    import os
+
+    import torch
+
+    from ipc_tpu_torch.__main__ import main as cli_main
+    from ipc_tpu_torch.config import load_config
+    from ipc_tpu_torch.ops.tet_hv import tet_hv
+    from ipc_tpu_torch.sim import Simulation
+
+    workdir, scene, V = _driver_scene_files("driver_path", n_cells)
     out = os.path.join(workdir, "out")
     args = ["-n", "10", "--f32", "--jit-step", "--save-every", "5"]
     if torch.device(device).type != "cuda":  # a CPU rehearsal; the card is the default
@@ -770,31 +831,392 @@ def phase_driver_path(device, n_cells=20):
     return launches
 
 
-def main():
+def _sync(device):
     import torch
 
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _host_counts(stats):
+    """(Newton iterations: search directions, PCG iterations) of a host
+    StepStats (lists over every sub-solve of the step)."""
+    return len(stats.pcg_iters), sum(stats.pcg_iters)
+
+
+def phase_host_path(device, n_cells=20, n_steps=10):
+    """The host path at full width (module docstring, phase 13), in
+    build/host_path/ of this checkout. Returns the run's tet_hv launches."""
+    import os
+
+    import torch
+
+    from ipc_tpu_torch.__main__ import main as cli_main
+    from ipc_tpu_torch.config import load_config
+    from ipc_tpu_torch.ops.tet_hv import tet_hv
+    from ipc_tpu_torch.sim import Simulation
+    from ipc_tpu_torch.timestepper import IPCStepper
+    from ipc_tpu_torch.utils.observability import load_status
+
+    workdir, scene, V = _driver_scene_files("host_path", n_cells)
+    out = os.path.join(workdir, "out")
+    args = ["-n", str(n_steps), "--f32", "--save-every", "5"]
+    if torch.device(device).type != "cuda":  # a CPU rehearsal; the card is the default
+        args += ["--device", str(device)]
+    n_lower = len(V)
+    rows = []
+    host_step = IPCStepper.step
+
+    def checked_step(self, state, verbose=False):
+        """IPCStepper.step, timed, then the invariants (outside the time)."""
+        ops0, syncs0 = self.operator_applications, self.host_syncs
+        t0 = time.perf_counter()
+        nxt, st = host_step(self, state, verbose)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        directions, pcg = _host_counts(st)
+        for t in (nxt.x, nxt.v):
+            check(bool(torch.isfinite(t).all()), "finite state (host path)")
+        hit = bool(self.sc.has_intersection(nxt.x)[0])
+        ymin = nxt.x[:n_lower, 1].min().item()
+        rows.append(dict(wall=wall, directions=directions, pcg=pcg,
+                         syncs=self.host_syncs - syncs0, ops=self.operator_applications - ops0))
+        print(f"[host] step {state.step}: newton_iters={directions} line_searches="
+              f"{len(st.alphas)} pcg_iters_total={pcg} kappa={st.kappa:.6g} kappa_doublings="
+              f"{st.kappa_doublings} intersection_backtracks={st.intersection_backtracks} "
+              f"sweep_clamps={st.sweep_clamps} max_constraints={max(st.n_constraints)} "
+              f"operator_applications={rows[-1]['ops']} host_syncs={rows[-1]['syncs']} "
+              f"ymin_lower={ymin:.6g} intersection={hit} wall_s={wall:.4f}", flush=True)
+        check(not hit, "no edge-triangle intersection after a host step")
+        check(ymin > 0.0, "the lower box stays above the plate")
+        return nxt, st
+
+    tet_hv.launches = 0
+    IPCStepper.step = checked_step
+    try:
+        t0 = time.perf_counter()
+        check(cli_main([scene, "-o", out] + args) == 0, "the host-path CLI run exits 0")
+        wall = time.perf_counter() - t0
+    finally:
+        IPCStepper.step = host_step
+    launches = tet_hv.launches
+    with open(os.path.join(out, "info.txt")) as f:
+        info = json.load(f)
+    stats = info["step_stats"]
+    steps_s = sum(r["wall"] for r in rows)
+    newton = sum(r["directions"] for r in rows)
+    pcg = sum(r["pcg"] for r in rows)
+    syncs = sum(r["syncs"] for r in rows)
+    print(f"[host] {n_steps} steps in {steps_s:.3f} s ({steps_s / n_steps:.4f} s per step; the "
+          f"whole CLI call {wall:.3f} s), {newton} Newton iterations ({steps_s / max(newton, 1):.4f} "
+          f"s per iteration), {pcg} PCG iterations; host syncs {syncs} ({syncs / n_steps:.1f} per "
+          f"step; info.txt {info['host_syncs']}); tet_hv launches={launches} operator "
+          f"applications={info['operator_applications']}")
+    check(len(stats) == len(rows) == n_steps, f"{n_steps} host steps ran")
+    check(info["host_syncs"] == syncs, "info.txt counts the host path's syncs")
+    check(launches > 0 and launches == info["operator_applications"],
+          "one tet_hv launch per operator application (host path)")
+    # iterStats.txt: one line per line-searched Newton iteration of the
+    # last sub-solve (stats.iters), as the JAX package writes it
+    it = _read_rows(os.path.join(out, "iterStats.txt"))
+    check(len(it) == sum(s["iters"] for s in stats), "one iterStats line per Newton iteration")
+    check(all(0.0 < float(r[1]) <= 1.0 for r in it), "iterStats step sizes in (0, 1]")
+    sim = Simulation(load_config(scene), dtype=torch.float32, device=device)
+    z10 = np.load(os.path.join(out, f"status{n_steps}.npz"))
+    check(int(z10["step"]) == n_steps and all(np.isfinite(z10[f]).all() for f in ("x", "v", "a")),
+          "status10.npz reads back finite")
+    p0, p1 = sim.mesh_co_ranges[0]
+    check(np.array_equal(z10["x"][p0:p1], sim.mesh.x_rest[p0:p1].double().cpu().numpy()),
+          "the plate stays bitwise at its placement")
+    print(f"[host] iterStats.txt {len(it)} lines; status{n_steps}.npz: ymin lower box "
+          f"{z10['x'][:n_lower, 1].min():.6g}")
+    # one step twice from the checkpoint of step 5, in a fresh Simulation
+    state = load_status(os.path.join(out, "status5.npz"), sim.stepper)
+    a, _ = sim.stepper.step(state)
+    b, _ = sim.stepper.step(state)
+    _sync(device)
+    same = bool(torch.equal(a.x, b.x))
+    print(f"[host] one step twice from status5.npz: bitwise_equal={same}")
+    check(same, "host step bitwise repeatable")
+    tet_hv.launches = launches  # the repeat's launches are not the main run's
+    return launches
+
+
+def _host_snapshot(st):
+    """A host stepper's mutable state: plane origins, the script (ACO
+    velocities) and fricDHat."""
+    import copy
+
+    return st.hs_origin.copy(), copy.deepcopy(st.script), st.fric_dhat
+
+
+def _host_restore(st, snap):
+    import copy
+
+    st.hs_origin[:] = snap[0]
+    st.script = copy.deepcopy(snap[1])
+    st.fric_dhat = snap[2]
+    if st.hs_moving:
+        st._refresh_hs_D()
+
+
+def _host_step_counts(stats):
+    """Every count the host reference holds: Newton, PCG, kappa doublings,
+    AL iterations, intersection backtracks, sweep clamps."""
+    return _host_counts(stats) + (stats.kappa_doublings, stats.al_iters,
+                                  stats.intersection_backtracks, stats.sweep_clamps)
+
+
+def _host_cpu_case(name):
+    """The CPU side of one host-reference case in float64, run in a worker
+    process beside the card's phases: per step, the state before it, x
+    after it, its counts and planes, and its response to two 1-ulp changes
+    of x (the largest |dx| and count change; the stepper's host state is
+    restored before each); then the stepper's fricDHat values."""
+    import torch
+
+    from ipc_tpu_torch.convert import state_from_numpy, state_to_numpy
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    make, n_steps, v0, from_contact = _host_reference_scenes()[name]
+    st = make("cpu")
+    if from_contact:
+        pre, first = dict(_contact_lead(), dx_el=None), 8
+    else:
+        v = None if v0 is None else np.tile(v0, (st.mesh.x_rest.shape[0], 1))
+        pre, first = state_to_numpy(st.initial_state(v0=v)), 0
+    rng = np.random.default_rng(6)
+    steps = []
+    for i in range(first, first + n_steps):
+        before = _host_snapshot(st)
+        nxt, ref = st.step(state_from_numpy(pre, "cpu", torch.float64))
+        after = _host_snapshot(st)
+        x_ref = nxt.x.numpy()
+        rc = _host_step_counts(ref)
+        sens, change = 0.0, [0] * len(rc)
+        for _ in range(2):
+            _host_restore(st, before)
+            pert = dict(pre, x=pre["x"] + rng.choice([-1.0, 1.0], size=pre["x"].shape)
+                        * np.spacing(np.abs(pre["x"])))
+            sp, sr = st.step(state_from_numpy(pert, "cpu", torch.float64))
+            sens = max(sens, float(np.abs(sp.x.numpy() - x_ref).max()))
+            change = [max(c, abs(a - b)) for c, a, b in zip(change, _host_step_counts(sr), rc)]
+        _host_restore(st, after)
+        steps.append(dict(i=i, pre=pre, x=x_ref, counts=rc, hs_origin=st.hs_origin.copy(),
+                          sens=sens, change=change))
+        pre = state_to_numpy(nxt)
+    return dict(steps=steps, fric_dhat=(st.fric_dhat, st.fric_dhat_target, st.fric_dhat0),
+                seconds=time.perf_counter() - t0)
+
+
+def _host_hold(tag, card_st, rec, device):
+    """One host step on the card from the CPU's state before it, held
+    against the CPU's step `rec` (_host_cpu_case) as _hold holds a device
+    step: Newton, PCG, kappa-doubling, AL, intersection-backtrack and
+    sweep-clamp counts each equal or within the change a 1-ulp change of x
+    causes in the CPU's own count, x within max(1e-9, twice the CPU step's
+    1-ulp response), the planes at the same place. The 1-ulp response
+    counts only when x or a count differ; on a step that is not
+    ill-conditioned it changes nothing, so the counts must be equal.
+    Returns the card's stats."""
+    import torch
+
+    from ipc_tpu_torch.convert import state_from_numpy
+
+    got, gs = card_st.step(state_from_numpy(rec["pre"], device, torch.float64))
+    dx = float(np.abs(got.x.cpu().numpy() - rec["x"]).max())
+    rc, gc = rec["counts"], _host_step_counts(gs)
+    sens, change = 0.0, [0] * len(rc)
+    if dx > 1e-9 or gc != rc:
+        sens, change = rec["sens"], rec["change"]
+    tol = max(1e-9, 2.0 * sens)
+    names = "newton/pcg/doublings/al/backtracks/clamps"
+    print(f"[{tag}]: card {names}={'/'.join(map(str, gc))} CPU {'/'.join(map(str, rc))}; "
+          f"max |dx|={dx:.3e} (limit {tol:.3e}; the CPU's 1-ulp count change "
+          f"{'/'.join(map(str, change))})", flush=True)
+    for name, g, r, c in zip(names.split("/"), gc, rc, change):
+        check(abs(g - r) <= c, f"{tag}: {name} count within the CPU's own 1-ulp change")
+    check(np.array_equal(card_st.hs_origin, rec["hs_origin"]), f"{tag}: the planes agree")
+    check(dx <= tol, f"{tag}: card agrees with the CPU reference")
+    return gs
+
+
+def _host_reference_scenes():
+    """{name: (host stepper factory on a device, steps compared, initial
+    velocity (3,) or None, starts from the contact scene's state before
+    step 8)} of the host reference."""
+    import torch
+
+    from ipc_tpu_torch.contact.halfspace import HalfSpace, HalfSpaceParams
+    from ipc_tpu_torch.mesh import build_mesh
+    from ipc_tpu_torch.models.primitives import cube
+    from ipc_tpu_torch.scenes import build_scene
+    from ipc_tpu_torch.scripting import Script
+    from ipc_tpu_torch.timestepper import IPCStepper, SimParams
+
+    f64 = torch.float64
+
+    def on_ground(n=1, y=0.01, mu=0.1, **params):
+        def make(dev):
+            V, T = cube(n)
+            mesh, meta = build_mesh(V + np.array([0.0, y, 0.0]), T, dtype=f64, device=dev)
+            return IPCStepper(mesh, meta, SimParams(**params),
+                              halfspaces=[HalfSpace(HalfSpaceParams(friction=mu))])
+        return make
+
+    def boxes(dev):
+        return build_scene(2, f64, dev, with_contact=True)
+
+    def shear(dev):
+        V, T = cube(1, size=0.5)
+        script = Script(n_verts=len(V), aco_kind="squashshear",
+                        aco_vel=np.array([[1.0, 0, 0], [-1.0, 0, 0]]))
+        planes = [HalfSpaceParams(origin=(-0.0004, 0.0, 0.0), normal=(1.0, 0.0, 0.0),
+                                  friction=0.2),
+                  HalfSpaceParams(origin=(0.5004, 0.0, 0.0), normal=(-1.0, 0.0, 0.0),
+                                  friction=0.2)]
+        mesh, meta = build_mesh(V, T, dtype=f64, device=dev)
+        return IPCStepper(mesh, meta, SimParams(gravity=(0, 0, 0)),
+                          halfspaces=[HalfSpace(q) for q in planes], script=script)
+
+    slide = np.array([0.5, 0.0, 0.0])
+    return {
+        "cube_drop": (on_ground(), 3, None, False),
+        "boxes_contact": (boxes, 1, None, True),
+        "warm_start5": (on_ground(n=2, y=0.3, mu=0.0, warm_start=5), 1, None, False),
+        "dense": (on_ground(y=0.02, mu=0.2, linsys="dense"), 1, None, False),
+        "sparse": (on_ground(y=0.02, mu=0.2, linsys="sparse"), 1, None, False),
+        "fric_dhat": (on_ground(y=0.002, mu=0.4, fric_dhat0_rel=4e-3), 2, slide, False),
+        "aco_squashshear": (shear, 3, None, False),
+        # the device variants' press scene (_variant_scenes)
+        "blocked_press": (_variant_scenes()["blocked_press"][0], 2, None, False),
+    }
+
+
+def start_host_reference(pool):
+    """Start the host reference's CPU side (_host_cpu_case) in `pool`, the
+    longest case first: {name: AsyncResult}, in the phase's order."""
+    names = list(_host_reference_scenes())
+    jobs = {n: pool.apply_async(_host_cpu_case, (n,)) for n in ["blocked_press"] + names}
+    return {n: jobs[n] for n in names}
+
+
+def phase_host_reference(device, cpu_refs):
+    """The host path in float64, card against CPU (module docstring, phase
+    14); `cpu_refs`: {name: _host_cpu_case's record}."""
+    for name, ref in cpu_refs.items():
+        t0 = time.perf_counter()
+        card_st = _host_reference_scenes()[name][0](device)
+        al = 0
+        for rec in ref["steps"]:
+            gs = _host_hold(f"host-ref {name} step {rec['i']}", card_st, rec, device)
+            al += gs.al_iters
+        print(f"[host-ref] {name}: {len(ref['steps'])} steps held, card "
+              f"{time.perf_counter() - t0:.1f} s (the CPU side {ref['seconds']:.1f} s in its "
+              f"worker)", flush=True)
+        if name == "blocked_press":
+            check(al > 0, "the blocked press ran the moving-DBC AL")
+        if name == "fric_dhat":
+            fric_dhat, target, start = ref["fric_dhat"]
+            check(fric_dhat == target < start, "the fricDHat homotopy ran to its target")
+        if name in ("dense", "sparse"):
+            check(set(gs.pcg_iters) == {1}, f"the {name} solve ran")
+
+
+def _host_reference_process(cpu_refs):
+    """Process target: phase 14 on the card, from the CPU's records."""
+    from ipc_tpu_torch.device import require_cuda
+
+    t0 = time.perf_counter()
+    phase_host_reference(require_cuda(), cpu_refs)
+    print(f"[host-ref] card side done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def start_host_reference_process(cpu_jobs):
+    """Phase 14 in a child process on the same card, once the CPU side is
+    in (None when the phase is not run)."""
+    import multiprocessing
+
+    if cpu_jobs is None:
+        return None
+    cpu_refs = {n: job.get() for n, job in cpu_jobs.items()}
+    child = multiprocessing.get_context("spawn").Process(target=_host_reference_process,
+                                                         args=(cpu_refs,))
+    child.start()
+    return child
+
+
+def join_host_reference(child):
+    child.join()
+    check(child.exitcode == 0, f"the host reference passed (exit code {child.exitcode})")
+
+
+def main(argv=None):
+    import argparse
+    import multiprocessing
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of ipc_tpu_torch on one GPU "
+                                 "(module docstring).")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run after device and build (a check "
+                         "of a few phases; the kernels line then counts only their launches)")
+    args = ap.parse_args(argv)
+    only = None if args.only is None else set(args.only.split(","))
     phases = []
 
-    def run(name, fn, *args):
+    def run(name, fn, *a, always=False):
+        if not always and only is not None and name not in only:
+            return None
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*a)
         phases.append((name, time.perf_counter() - t0))
         print(f"[phase] {name}: {phases[-1][1]:.1f} s", flush=True)
         return out
 
-    device, name = run("device", phase_device)
-    run("build", phase_build)
-    records = run("kernel_vs_plain", phase_kernel_vs_plain, device)
-    run("ground_path", phase_ground_path, device)
-    run("ground_reference", phase_ground_reference, device)
-    run("broadphase", phase_broadphase, device)
-    launches = run("contact_path", phase_contact_path, device)
-    run("bench_timing", phase_bench_timing, device)
-    contact_lead = run("contact_reference", phase_contact_reference, device)
-    launches += run("twist_path", phase_twist_path, device)
-    run("variants_reference", phase_variants_reference, device, contact_lead)
-    launches += run("driver_path", phase_driver_path, device)
+    device, name = run("device", phase_device, always=True)
+    run("build", phase_build, always=True)
+    # the host reference's CPU side runs in two single-threaded worker
+    # processes beside the card phases before it
+    pool = cpu_jobs = None
+    if only is None or "host_reference" in only:
+        pool = multiprocessing.get_context("spawn").Pool(2)
+        cpu_jobs = start_host_reference(pool)
+    child = None
+    try:
+        # the timed phases first, alone on the card
+        launches = 0
+        records = run("kernel_vs_plain", phase_kernel_vs_plain, device)
+        run("ground_path", phase_ground_path, device)
+        run("broadphase", phase_broadphase, device)
+        launches += run("contact_path", phase_contact_path, device) or 0
+        run("bench_timing", phase_bench_timing, device)
+        launches += run("twist_path", phase_twist_path, device) or 0
+        launches += run("driver_path", phase_driver_path, device) or 0
+        launches += run("host_path", phase_host_path, device) or 0
+        # then the references, which are not timed: the host reference in a
+        # child process on the same card beside the others
+        child = start_host_reference_process(cpu_jobs)
+        run("ground_reference", phase_ground_reference, device)
+        contact_lead = run("contact_reference", phase_contact_reference, device)
+        if contact_lead is None and (only is None or "variants_reference" in only):
+            contact_lead = _contact_lead()
+        run("variants_reference", phase_variants_reference, device, contact_lead)
+        run("host_reference", join_host_reference, child)
+    finally:
+        if child is not None and child.is_alive():
+            child.terminate()
+            child.join()
+        if pool is not None:
+            pool.terminate()
+            pool.join()
     print(f"[phase] total {sum(s for _, s in phases):.1f} s")
+    if records is None:  # a partial run: time the kernel at the driver shape alone
+        from ipc_tpu_torch.hv_timing import measure
+
+        records = {("driver", 20, "float32"): measure(20, torch.float32, device, "driver")}
     r = records[("driver", 20, "float32")]  # the driver path's shape and dtype
     print(json.dumps({"kernels": [dict(
         name="tet_hv", route="cuda", source="ipc_tpu_torch/csrc/tet_hv.cu",

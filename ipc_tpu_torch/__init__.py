@@ -12,8 +12,11 @@ counterpart of `ipc_tpu.jit_step.make_jit_step`) on the two-box scene
 `scenes.build_scene(..., with_contact=...)`: Neo-Hookean elasticity,
 backward Euler, the IPC half-space barrier with lagged friction, and with
 contact the self-contact barrier, ACCD and self-friction; PCG with the
-two-level coarse preconditioner. Entry points run on the card unless the
-caller passes device="cpu".
+two-level coarse preconditioner. Beside it the host-path stepper
+(`timestepper.IPCStepper.step`, the JAX package's default) with its warm
+starts, homotopies, direct solves and mesh-sequence scripts; the scene
+driver (`python -m ipc_tpu_torch scene.txt`) runs either. Entry points
+run on the card unless the caller passes device="cpu".
 
 Precision policy (the counterpart of `Precision.HIGHEST` throughout the JAX
 code): float32 matrix products run in full float32, never TF32. Every

@@ -1,7 +1,8 @@
-"""CLI driver: `python -m ipc_tpu_torch <scene.txt> --jit-step [options]`.
+"""CLI driver: `python -m ipc_tpu_torch <scene.txt> [options]`.
 
 Port of `python -m ipc_tpu`: loads a reference-format scene file, runs it
-with the device step and writes the same artifacts (iterStats.txt,
+with the host-path stepper (IPCStepper.step), or with --jit-step the
+device step, and writes the same artifacts (iterStats.txt,
 sysE/sysM/sysL.txt, info.txt, resultsStats.txt, status{k}.npz,
 surf{k}.obj). The JAX CLI's flags, with `--device` in place of
 `--platform`: without it the run is on the card, and raises when none is
@@ -22,11 +23,12 @@ def main(argv=None):
                     help="torch device (default: the CUDA card; 'cpu' for the CPU)")
     ap.add_argument("--f32", action="store_true", help="run in float32")
     ap.add_argument("--jit-step", action="store_true",
-                    help="use the device step (the only stepper ported so far)")
+                    help="use the device step (jit_step.make_step) instead of the host path")
     ap.add_argument("--save-every", type=int, default=1)
     ap.add_argument("--gif", action="store_true",
                     help="render per-step frames and write anim.gif")
-    ap.add_argument("--verbose", action="store_true")
+    ap.add_argument("--verbose", action="store_true",
+                    help="print the host path's Newton iterations")
     args = ap.parse_args(argv)
 
     import torch

@@ -1,6 +1,6 @@
 """Analytic half-space (ground/wall) collision object.
 
-Port of ipc_tpu/contact/halfspace.py:45-154, 174-265 (reference
+Port of ipc_tpu/contact/halfspace.py (reference
 HalfSpace.cpp): the squared signed distance d = (n.x + D)^2 fed to the IPC
 barrier, its gradient and SPD Hessian blocks per surface vertex, the closed-
 form largest feasible step, and lagged friction on the plane's fixed
@@ -9,9 +9,10 @@ tangent basis. Every method takes surface-vertex positions (Sv,3).
 Moving planes (scripted ACO scenes): the barrier methods take an optional
 `D`, a 0-d tensor that overrides the static offset, and the friction terms
 an optional `veldt`, the plane's displacement this step, subtracted from
-the relative displacement (reference `VDiff -= velocitydt`). `move_bound_t`
-clamps a plane's per-step move against the surface vertices on the device.
-The host-only `move_bound` belongs to the host-path stepper and waits for it.
+the relative displacement (reference `VDiff -= velocitydt`). A plane's
+per-step move is clamped against the surface vertices: `move_bound` on the
+host (numpy; the host path's plane move), `move_bound_t` on the device (the
+device step's).
 """
 
 from dataclasses import dataclass
@@ -121,6 +122,19 @@ class HalfSpace:
         return alpha.min()
 
     # -- scripted plane motion ---------------------------------------------
+
+    def move_bound(self, x_sv_np, deltaX, D=None, slackness=0.5):
+        """Fraction of the plane displacement `deltaX` (3,) that keeps the
+        plane, at offset `D` (default: the static one), from passing a
+        surface vertex of x_sv_np (numpy (Sv,3)): min(1, slackness * min
+        dist / (n.deltaX)) when the plane approaches its half-space, else 1
+        (reference HalfSpace::move). A host float."""
+        n = self._n
+        coef = float(n @ np.asarray(deltaX, float))
+        if coef <= 0.0:  # the plane moves away from (or along) its half-space
+            return 1.0
+        dist = np.asarray(x_sv_np, float) @ n + (self._D if D is None else float(D))
+        return float(min(1.0, slackness * dist.min() / coef))
 
     def move_bound_t(self, x_sv, deltaX, D, slackness=0.5):
         """Fraction (0-d) of the plane displacement `deltaX` (3,) that keeps

@@ -17,9 +17,18 @@ one takes the largest such mu of its stencil instead of `friction`. On the
 grid path, primitives far larger than the deformable ones (an obstacle's
 plane triangles) are swept densely (`big`, spatial_hash.py).
 
+The host path's energy runs over a whole candidate set: `candidate_set`
+views one as an ActiveSet (no compaction, no host read), so
+`energy_active` evaluates every candidate pair, as the JAX package's
+`energy`/`energy_df` do. Its moving-DBC episode frees every Dirichlet
+vertex, which the JAX package does by rebinding the pipeline to an
+all-False mask: `build_candidates` and `has_intersection` take
+`dbc_free=True` for that, with the oversized primitives classified against
+the same mask.
+
 Not ported: the SPMD broad phase (multi-GPU), and the full-candidate
-`energy/gradient/hessian_blocks/n_active/et_pairs` helpers, which the
-production step does not call.
+`gradient/hessian_blocks/n_active/et_pairs` helpers (the active set gives
+the same values: the barrier and its derivatives vanish beyond dHat).
 """
 
 import math
@@ -111,16 +120,18 @@ class SelfContact:
         self.big = self._classify_big(mesh) if broadphase == "grid" else None
         self.tab = SC.SlotTables(mesh.x_rest.device, mesh.x_rest.dtype)
         self.host_syncs = 0
+        self._free = None  # (all-False mask, its big classification), built on use
 
-    def _classify_big(self, mesh):
+    def _classify_big(self, mesh, dbc=None):
         """Oversized primitives from the rest shape: extent above BIG_FACTOR x
         the median extent of the primitives that are not all-DBC (obstacle
         primitives must not set the median they are measured against); the
         BIG_MAX largest when more qualify, with a warning. dict(tri_ids,
         tri_mask, edge_ids, edge_mask) on the mesh's device (None entries
-        for a family without any), or None when no primitive qualifies."""
+        for a family without any), or None when no primitive qualifies.
+        `dbc` (numpy bool) overrides the mesh's mask."""
         xr = mesh.x_rest.detach().cpu().numpy()
-        dbc = mesh.dbc_mask.cpu().numpy()
+        dbc = mesh.dbc_mask.cpu().numpy() if dbc is None else dbc
         out = {}
         for name, prims in (("tri", mesh.surf_tris.cpu().numpy()),
                             ("edge", mesh.surf_edges.cpu().numpy())):
@@ -148,6 +159,18 @@ class SelfContact:
             out[name + "_mask"] = mask
         return out if any(v is not None for v in out.values()) else None
 
+    def _mask_and_big(self, dbc_free):
+        """(Dirichlet mask, oversized primitives) of the broad phase: the
+        mesh's, or with dbc_free an all-False mask and its classification."""
+        if not dbc_free:
+            return self.mesh.dbc_mask, self.big
+        if self._free is None:
+            mask = torch.zeros_like(self.mesh.dbc_mask)
+            big = (self._classify_big(self.mesh, mask.cpu().numpy())
+                   if self.broadphase == "grid" else None)
+            self._free = (mask, big)
+        return self._free
+
     # -- candidate construction ---------------------------------------------
 
     def _comoving(self, disp):
@@ -157,24 +180,24 @@ class SelfContact:
             return None
         return disp - disp[self.mesh.surf_verts].mean(dim=0)
 
-    def build_candidates(self, x, disp=None, gap=0.0, with_et=True):
+    def build_candidates(self, x, disp=None, gap=0.0, with_et=True, dbc_free=False):
         """One broad phase: PT and EE barrier/CCD stencils plus the swept
         edge-triangle pairs of the intersection check, swept along `disp`
-        in the co-moving frame and inflated by `gap`."""
+        in the co-moving frame and inflated by `gap`. dbc_free: as if no
+        vertex were Dirichlet (module docstring)."""
         mesh = self.mesh
+        dbc, big = self._mask_and_big(dbc_free)
         disp = self._comoving(disp)
         if self.broadphase == "grid":
             fused = SH.fused_candidates(x, mesh.surf_verts, mesh.surf_edges, mesh.surf_tris,
-                                        mesh.dbc_mask, disp, gap, with_et=with_et, big=self.big)
+                                        dbc, disp, gap, with_et=with_et, big=big)
             (pt, pt_n), (ee, ee_n), (et, et_n) = fused["pt"], fused["ee"], fused["et"]
             self.host_syncs += fused["host_syncs"]
         else:
-            pt, pt_n = BP.pt_candidates(x, mesh.surf_verts, mesh.surf_tris, mesh.dbc_mask,
-                                        disp, gap)
-            ee, ee_n = BP.ee_candidates(x, mesh.surf_edges, mesh.dbc_mask, disp, gap)
+            pt, pt_n = BP.pt_candidates(x, mesh.surf_verts, mesh.surf_tris, dbc, disp, gap)
+            ee, ee_n = BP.ee_candidates(x, mesh.surf_edges, dbc, disp, gap)
             if with_et:
-                et, et_n = BP.et_candidates(x, mesh.surf_edges, mesh.surf_tris, disp, gap,
-                                            mesh.dbc_mask)
+                et, et_n = BP.et_candidates(x, mesh.surf_edges, mesh.surf_tris, disp, gap, dbc)
             else:
                 et = torch.zeros((0, 2), dtype=torch.int64, device=x.device)
                 et_n = 0
@@ -213,6 +236,11 @@ class SelfContact:
         self.host_syncs += 1
         return ActiveSet(vids_p=cand.pt_vids[sp], vids_e=cand.ee_vids[se],
                          eps_e=cand.ee_eps_x[se], cnt_pt=n_pt, cnt_ee=n_ee)
+
+    def candidate_set(self, cand):
+        """Every candidate pair of `cand` as an ActiveSet (no compaction)."""
+        return ActiveSet(vids_p=cand.pt_vids, vids_e=cand.ee_vids, eps_e=cand.ee_eps_x,
+                         cnt_pt=cand.pt_count, cnt_ee=cand.ee_count)
 
     def vert_sum(self, act):
         """The active set's vertex gather-sum (built once, then cached)."""
@@ -293,16 +321,17 @@ class SelfContact:
         """0-d bool: any of the (edge, tri) pairs properly intersects."""
         return any_edge_tri_intersection(x, self.mesh.surf_edges, self.mesh.surf_tris, pairs)
 
-    def has_intersection(self, x):
+    def has_intersection(self, x, dbc_free=False):
         """(0-d bool, pair count): any surface edge through any surface
-        triangle at x (a fresh unswept broad phase at gap 0)."""
+        triangle at x (a fresh unswept broad phase at gap 0); dbc_free as in
+        build_candidates."""
         mesh = self.mesh
+        dbc, big = self._mask_and_big(dbc_free)
         if self.broadphase == "grid":
             pairs, n, syncs = SH.et_candidates(x, mesh.surf_edges, mesh.surf_tris,
-                                               dbc_mask=mesh.dbc_mask, big=self.big)
+                                               dbc_mask=dbc, big=big)
             self.host_syncs += syncs
         else:
-            pairs, n = BP.et_candidates(x, mesh.surf_edges, mesh.surf_tris,
-                                        dbc_mask=mesh.dbc_mask)
+            pairs, n = BP.et_candidates(x, mesh.surf_edges, mesh.surf_tris, dbc_mask=dbc)
             self.host_syncs += 1
         return self.intersects_pairs(x, pairs), n

@@ -35,9 +35,9 @@ def _aux_tensor(a, device, dtype):
 
 def state_from_numpy(arrays, device=None, dtype=torch.float64):
     """SimState from a dict with x, x_prev, v, a ((V,3) arrays) and
-    optionally t, step and aux (a dict of arrays: floats are cast to
-    `dtype`, bool arrays stay bool), on `device` (the card when None, "cpu"
-    for the CPU)."""
+    optionally t, step, dx_el ((V,3) or None) and aux (a dict of arrays:
+    floats are cast to `dtype`, bool arrays stay bool), on `device` (the
+    card when None, "cpu" for the CPU)."""
     dtype = as_dtype(dtype)
     device = resolve_device(device)
     conv = {k: torch.as_tensor(np.array(arrays[k], np.float64), device=device).to(dtype)
@@ -45,16 +45,20 @@ def state_from_numpy(arrays, device=None, dtype=torch.float64):
     aux = arrays.get("aux")
     if aux is not None:
         aux = {k: _aux_tensor(v, device, dtype) for k, v in aux.items()}
+    dx_el = arrays.get("dx_el")
+    if dx_el is not None:
+        dx_el = torch.as_tensor(np.array(dx_el, np.float64), device=device).to(dtype)
     return SimState(**conv, t=float(np.asarray(arrays.get("t", 0.0))),
-                    step=int(np.asarray(arrays.get("step", 0))), aux=aux)
+                    step=int(np.asarray(arrays.get("step", 0))), dx_el=dx_el, aux=aux)
 
 
 def state_to_numpy(state):
-    """dict of numpy arrays (x, x_prev, v, a), host t and step, and aux (a
-    dict of numpy arrays, or None)."""
+    """dict of numpy arrays (x, x_prev, v, a), host t and step, dx_el (a
+    numpy array, or None) and aux (a dict of numpy arrays, or None)."""
     out = {k: getattr(state, k).detach().cpu().numpy() for k in STATE_ARRAYS}
     out["t"] = float(state.t)
     out["step"] = int(state.step)
+    out["dx_el"] = None if state.dx_el is None else state.dx_el.detach().cpu().numpy()
     out["aux"] = (None if state.aux is None
                   else {k: v.detach().cpu().numpy() for k, v in state.aux.items()})
     return out

@@ -1,15 +1,19 @@
-"""Per-layer wall times of the production step on one GPU.
+"""Per-layer wall times of a time step on one GPU.
 
     python -m ipc_tpu_torch.profile_step [--scene boxes|twist] [--n-cells 20]
         [--dtype float32] [--settle 8] [--steps 3] [--no-contact]
+        [--stepper device|host]
 
 Builds the two-box scene (`scenes.build_scene` at n_cells, with
 self-contact unless --no-contact) or the mat-twist scene
-(`scenes.build_twist_scene` at n = n_cells), takes `settle` steps, then
-runs the next `steps` steps three times from the same state (the step is
-deterministic, so each run does the same work):
+(`scenes.build_twist_scene` at n = n_cells) and steps it with the device
+step (`jit_step.make_step`, the default) or the host path
+(`IPCStepper.step`), takes `settle` steps, then runs the next `steps`
+steps three times from the same state (both steppers are deterministic,
+so each run does the same work):
 
-  1. plain: wall seconds per step, Newton/PCG iterations, host syncs;
+  1. plain: wall seconds per step, Newton/PCG iterations (the host path's
+     Newton iterations: its search directions), host syncs;
   2. layers: a `torch.cuda.synchronize()` around every call of each layer
      below, summed per layer (inclusive: an indented layer also counts in
      the one it is called from; the syncs inflate the total);
@@ -69,8 +73,9 @@ class _Assemble:
         return self.fn.host_syncs
 
 
-def _install(timers, stepper):
+def _install(timers, stepper, host):
     from ipc_tpu_torch import jit_step as JS
+    from ipc_tpu_torch import step_terms as ST
     from ipc_tpu_torch.contact import pipeline as PL
     from ipc_tpu_torch.energy import elasticity as EL
     from ipc_tpu_torch.ops import compensated as CO
@@ -80,13 +85,19 @@ def _install(timers, stepper):
         (EL, "elasticity_gradient", "elasticity gradient"),
         (EL, "elasticity_energy_per_elem", "elasticity energy"),
         (EL, "filter_step_size", "inversion step bound"),
-        (JS, "pcg", "PCG solves (operator + preconditioner)"),
-        (JS, "tet_hv", "  tet_hv (in PCG)"),
+        (ST, "pcg", "PCG solves (operator + preconditioner)"),
+        (ST, "tet_hv", "  tet_hv (in PCG)"),
         (CO, "df_sum", "compensated sums (energies)"),
         (stepper, "_friction_energy", "friction energy"),
         (stepper, "_friction_gradient", "friction gradient"),
         (stepper, "_friction_hessians", "friction blocks"),
     ]
+    if host:
+        targets += [
+            (stepper, "_sweep_clamp", "swept-span clamp (host read)"),
+            (stepper, "_all_dist2", "kappa-doubling distances (host read)"),
+            (stepper, "init_kappa", "kappa init"),
+        ]
     if stepper.script is not None:
         closures = JS.device_closures
 
@@ -111,27 +122,34 @@ def _install(timers, stepper):
             (sc, "capture_friction", "friction capture"),
             (sc, "vert_sum", "active-set gather-sum tables"),
         ]
+        if host:
+            targets.append((sc, "has_intersection", "intersection test (fresh ET broad phase)"))
     for owner, attr, label in targets:
         timers.install(owner, attr, label)
-    make = JS.make_coarse_assembler
+    make = ST.make_coarse_assembler
 
     def make_timed(*args, **kwargs):
         assemble, term = make(*args, **kwargs)
         return (_Assemble(assemble, timers.wrap("coarse assembly", assemble)),
                 timers.wrap("coarse correction (in PCG)", term))
 
-    JS.make_coarse_assembler = make_timed
+    ST.make_coarse_assembler = make_timed
 
 
-def _run(step, state, n):
+def _run(step, counts, state, n, host):
+    """n steps from state: rows of (wall s, Newton iterations, PCG
+    iterations, host syncs, largest active-pair count)."""
     rows = []
     for _ in range(n):
-        syncs = step.host_syncs
+        syncs = counts.host_syncs
         t0 = time.perf_counter()
         state, s = step(state)
         torch.cuda.synchronize()
-        rows.append((time.perf_counter() - t0, s.newton_iters, s.pcg_iters_total,
-                     step.host_syncs - syncs, s.active_pt_max + s.active_ee_max))
+        if host:
+            k, it, act = len(s.pcg_iters), sum(s.pcg_iters), max(s.n_constraints, default=0)
+        else:
+            k, it, act = s.newton_iters, s.pcg_iters_total, s.active_pt_max + s.active_ee_max
+        rows.append((time.perf_counter() - t0, k, it, counts.host_syncs - syncs, act))
     return state, rows
 
 
@@ -143,6 +161,7 @@ def main(argv=None):
     ap.add_argument("--settle", type=int, default=8)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--no-contact", action="store_true")
+    ap.add_argument("--stepper", choices=("device", "host"), default="device")
     args = ap.parse_args(argv)
 
     from ipc_tpu_torch import jit_step as JS
@@ -152,17 +171,19 @@ def main(argv=None):
     device = require_cuda()
     print(f"[profile] {torch.cuda.get_device_name(0)}; scene={args.scene} "
           f"n_cells={args.n_cells} {args.dtype} contact={not args.no_contact} "
-          f"settle={args.settle} steps={args.steps}")
+          f"stepper={args.stepper} settle={args.settle} steps={args.steps}")
     if args.scene == "twist":
         st = build_twist_scene(args.n_cells, args.dtype, device)
     else:
         st = build_scene(args.n_cells, args.dtype, device, with_contact=not args.no_contact)
+    host = args.stepper == "host"
     timers = _Timers()
-    _install(timers, st)
-    step = JS.make_step(st)
-    start, _ = _run(step, st.initial_state(), args.settle)
+    _install(timers, st, host)
+    step = st.step if host else JS.make_step(st)
+    counts = st if host else step
+    start, _ = _run(step, counts, st.initial_state(), args.settle, host)
 
-    _, plain = _run(step, start, args.steps)
+    _, plain = _run(step, counts, start, args.steps, host)
     for i, (w, k, it, sy, act) in enumerate(plain):
         print(f"[profile] plain step {args.settle + i}: wall_s={w:.4f} newton_iters={k} "
               f"pcg_iters={it} host_syncs={sy} active_pairs_max={act}")
@@ -172,7 +193,7 @@ def main(argv=None):
           f"iterations, {wall / max(newton, 1):.4f} s per iteration")
 
     timers.on = True
-    _, synced = _run(step, start, args.steps)
+    _, synced = _run(step, counts, start, args.steps, host)
     timers.on = False
     total = sum(r[0] for r in synced)
     print(f"[profile] synced layers over the same {args.steps} steps: {total:.4f} s")
@@ -180,7 +201,7 @@ def main(argv=None):
         print(f"[profile] layer | {label} | calls={calls} | s={sec:.4f} | "
               f"share={100.0 * sec / total:.1f}%")
 
-    last, _ = _run(step, start, args.steps - 1)
+    last, _ = _run(step, counts, start, args.steps - 1, host)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         step(last)

@@ -25,10 +25,10 @@ adds nothing (the JAX package adds 0 * d, which gives the same sums). The
 JAX step compares a traced `t` in the working dtype: a float32 JAX run
 gates on a float32 `t`.
 
-Mesh-sequence scripts read mesh files every step and run only on the host
-path, which is not ported: `_load_seq_frame` raises NotImplementedError,
-and jit_step.make_step refuses such scripts with the JAX package's
-ValueError.
+Mesh-sequence scripts read a mesh file every step (`_load_seq_frame`,
+through the port's own io_mesh) and run on the host path
+(timestepper.IPCStepper.step); jit_step.make_step refuses them with the
+JAX package's ValueError.
 """
 
 import math
@@ -379,9 +379,18 @@ def device_closures(script, dtype, dt, device):
 
 
 def _load_seq_frame(folder, frame, ext):
-    raise NotImplementedError(
-        "mesh-sequence scripts read mesh files every step and need the host-path "
-        "stepper, which the port does not have yet")
+    """Vertices of frame `frame` of a mesh sequence: `{folder}/{frame}{ext}`,
+    a .seg or an .obj file."""
+    import os
+
+    from ipc_tpu_torch import io_mesh
+
+    path = os.path.join(folder, f"{frame}{ext}")
+    if ext == ".seg":
+        V, _ = io_mesh.read_seg(path)
+    else:
+        V, _ = io_mesh.read_obj(path)
+    return V
 
 
 def _euler_xyz(rad):

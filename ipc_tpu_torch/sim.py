@@ -22,16 +22,17 @@ scripted motion) with their own friction (`vert_mu`), and self-contact runs
 when the scene asks for it or has an obstacle.
 
 The mesh and every tensor live on the device given (the card when None).
-`Simulation.run` steps with the device step (jit_step.make_step, the
-counterpart of the JAX package's `use_jit_step=True`); info.txt also
-records each step's StepStats, the step's operator applications and host
-syncs.
+`Simulation.run` steps with the host path (`IPCStepper.step`, the JAX
+package's default) or, with use_jit_step=True, the device step
+(jit_step.make_step); mesh-sequence scripts run only on the host path
+(ValueError on the device step, as in the JAX package). info.txt also
+records each step's stats, and the stepper's operator applications and
+host syncs.
 
 Not ported: the capacity regrow of the JAX jit path (`_regrow_and_redo`,
 `grow_caps`, `_check_capacity_budget`: the port's candidate sets are
-exact-size). Raised, not replaced: the host path (`use_jit_step=False`;
-the host stepper is ROADMAP item 13), `constraintSolver QP/SQP` (item 14),
-and mesh-sequence scripts (ValueError, as in the JAX package).
+exact-size). Raised, not replaced: `constraintSolver QP/SQP` (ROADMAP
+item 14).
 """
 
 import dataclasses
@@ -353,15 +354,10 @@ class Simulation:
 
     def run(self, out_dir, n_steps=None, save_every=1, use_jit_step=False, verbose=False,
             gif=False):
-        """Offline loop: step, write status checkpoints, surface meshes and
-        logs into out_dir. Only the device step is ported: use_jit_step
-        must be True (the JAX signature's `verbose` prints only on the host
-        path)."""
-        if not use_jit_step:
-            raise NotImplementedError(
-                "the host-path stepper (IPCStepper.step) is not ported yet (ROADMAP item "
-                "13): run with use_jit_step=True (--jit-step)")
-        if self.script is not None and self.script.host_only():
+        """Offline loop: step (the host path, or the device step with
+        use_jit_step), write status checkpoints, surface meshes and logs into
+        out_dir. `verbose` prints the host path's Newton iterations."""
+        if use_jit_step and self.script is not None and self.script.host_only():
             raise ValueError("use_jit_step does not support mesh-sequence scripts "
                              "(per-frame file IO); run the host path for those scenes")
         from ipc_tpu_torch.jit_step import initial_device_aux, make_step
@@ -380,12 +376,18 @@ class Simulation:
             self._recorder = RunRecorder(x_np, self.mesh.surf_tris.cpu().numpy())
             self._recorder.add(x_np)
         total = n_steps if n_steps is not None else int(round(self.cfg.duration / self.cfg.dt))
-        state = dataclasses.replace(state, aux=initial_device_aux(self.stepper))
-        self.step_fn = make_step(self.stepper)
+        if use_jit_step:
+            state = dataclasses.replace(state, aux=initial_device_aux(self.stepper))
+            self.step_fn = make_step(self.stepper)
+            counts = self.step_fn
+        else:
+            self.step_fn = None
+            counts = self.stepper
+        ops0, syncs0 = counts.operator_applications, counts.host_syncs
         self.step_stats = []
         t0 = time.perf_counter()
         try:
-            self._run_loop(state, int(state.step), total, logger, out_dir, save_every)
+            self._run_loop(state, int(state.step), total, logger, out_dir, save_every, verbose)
         except RuntimeError:
             save_status(os.path.join(out_dir, "status_failed.npz"), self._last_state, -1,
                         self.stepper)
@@ -395,27 +397,31 @@ class Simulation:
             logger.write_results_stats(wall)
             logger.write_info(dict(
                 step_stats=[dataclasses.asdict(s) for s in self.step_stats],
-                operator_applications=self.step_fn.operator_applications,
-                host_syncs=self.step_fn.host_syncs,
+                operator_applications=counts.operator_applications - ops0,
+                host_syncs=counts.host_syncs - syncs0,
             ))
             logger.close()
             if self._recorder is not None and self._recorder.frames:
                 self._recorder.save(os.path.join(out_dir, "anim.gif"))
         return self._last_state
 
-    def _run_loop(self, state, start, total, logger, out_dir, save_every):
+    def _run_loop(self, state, start, total, logger, out_dir, save_every, verbose):
         self._last_state = state
         for k in range(start, total):
             with logger.timers.section("step"):
-                state, js = self.step_fn(state)
-            self.step_stats.append(js)
+                if self.step_fn is None:
+                    state, stats = self.stepper.step(state, verbose=verbose)
+                else:
+                    state, js = self.step_fn(state)
+                    # the logger's view of a device step: one record per
+                    # step with the active (d < dHat) constraint count
+                    stats = _LogStats(
+                        iters=js.newton_iters, alphas=[js.last_alpha],
+                        n_constraints=[js.active_pt_max + js.active_ee_max],
+                        grad_inf=[js.dist_to_opt])
+            self.step_stats.append(stats if self.step_fn is None else js)
             self._last_state = state
-            # the logger's view of a device step: one record per step with
-            # the active (d < dHat) constraint count
-            logger.log_step(k, _LogStats(
-                iters=js.newton_iters, alphas=[js.last_alpha],
-                n_constraints=[js.active_pt_max + js.active_ee_max],
-                grad_inf=[js.dist_to_opt]))
+            logger.log_step(k, stats)
             logger.log_system(self.mesh, self.meta, state, self.stepper.gravity, self.cfg.dt,
                               model=self.cfg.energy)
             if save_every and (k + 1) % save_every == 0:

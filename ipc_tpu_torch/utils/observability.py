@@ -13,10 +13,12 @@ packages' run directories compare file by file:
                     and velocities when the scene moves them)
 
 A checkpoint stores what the JAX package stores, ACO planes included: the
-stepper's `hs_origin` and the script's `aco_vel`, which the device step
-never updates (its planes live in SimState.aux). A restart therefore
-starts the planes, and any turning rules, from their initial state, as the
-JAX driver's does (ROADMAP §3).
+stepper's `hs_origin` and the script's `aco_vel`. The host path moves
+those, so its restart resumes the planes where they were. The device step
+never updates them (its planes live in SimState.aux): its restart starts
+the planes, and any turning rules, from their initial state, as the JAX
+driver's does (ROADMAP §3). Neither package stores SimState.dx_el (the
+warm-start correction of warm_start 3-4).
 """
 
 import json
@@ -248,9 +250,10 @@ def load_status_text(path, stepper):
 def load_status(path, stepper):
     """Restart from an npz checkpoint -> SimState in the stepper's dtype on
     its device. With moving planes, restores the stepper's hs_origin and
-    the script's aco_vel, which initial_device_aux reads."""
+    the script's aco_vel, which the host path and initial_device_aux read."""
     z = np.load(path)
     if "hs_origin" in z and stepper.hs_moving:
         stepper.hs_origin[:] = z["hs_origin"]
         stepper.script.aco_vel[:] = z["aco_vel"]
+        stepper._refresh_hs_D()
     return _state(stepper, z["x"], z["v"], z["a"], float(z["t"]), int(z["step"]))

@@ -185,10 +185,50 @@ def test_device_closures_match_jax(name):
     assert fired == (jt is not None)
 
 
-def test_mesh_sequence_frames_need_the_host_path():
-    with pytest.raises(NotImplementedError):
-        PS._load_seq_frame("frames", 1, ".obj")
-    script = PS.Script(n_verts=4, mesh_seqs=[PS.MeshSeqMotion(
-        verts=np.arange(4), folder="frames", transform=None, n_frames=2, ext=".obj")])
-    assert script.host_only()
-    assert PS.device_closures(script, torch.float64, 0.025, "cpu")[0] is None
+def test_mesh_sequence_frames_need_the_host_path(tmp_path):
+    """A mesh-sequence scene: a cube resting on the ground and a kinematic
+    cube above it following three .obj frames (squeezed 5% more each
+    frame). The frames read back as JAX reads them; the device step still
+    refuses the script, and two host-path steps equal JAX's (held as
+    tests/test_torch_host_step.py holds a step)."""
+    from ipc_tpu import mesh as JM
+    from ipc_tpu import timestepper as JT
+    from ipc_tpu.contact import halfspace as JH
+    from ipc_tpu.io_mesh import write_obj
+    from ipc_tpu_torch import mesh as PM
+    from ipc_tpu_torch import timestepper as PT
+    from ipc_tpu_torch.contact import halfspace as PH
+    from ipc_tpu_torch.jit_step import make_step
+    from tests.test_torch_host_step import hold, run_jax
+
+    V, T = cube(1)
+    F = np.array([[0, 1, 2]])
+    for k in range(3):
+        write_obj(str(tmp_path / f"{k}.obj"), V * np.array([1.0, 1.0 - 0.05 * k, 1.0]), F)
+    for k in range(3):
+        want = JS._load_seq_frame(str(tmp_path), k, ".obj")
+        assert np.array_equal(PS._load_seq_frame(str(tmp_path), k, ".obj"), want)
+    lower, upper = V + np.array([0.0, 0.01, 0.0]), V + np.array([0.0, 1.2, 0.0])
+
+    def stepper(S, M, Tm, H):
+        Vm, Te, comp, ranges = M.merge_meshes([(lower, T), (upper, T)])
+        script = S.Script(n_verts=len(Vm), mesh_seqs=[S.MeshSeqMotion(
+            verts=np.arange(8, 16), folder=str(tmp_path),
+            transform=lambda V0: V0 + np.array([0.0, 1.2, 0.0]), n_frames=3, ext=".obj")])
+        kw = dict(dtype=torch.float64, device="cpu") if M is PM else {}
+        mesh, meta = M.build_mesh(Vm, Te, vert_comp=comp, comp_ranges=ranges,
+                                  dbc_mask=script.dbc_mask(), **kw)
+        return Tm.IPCStepper(mesh, meta, Tm.SimParams(), script=script,
+                             halfspaces=[H.HalfSpace(H.HalfSpaceParams(friction=0.1))])
+
+    jst, pst = stepper(JS, JM, JT, JH), stepper(PS, PM, PT, PH)
+    assert pst.script.host_only()
+    assert PS.device_closures(pst.script, torch.float64, 0.025, "cpu")[0] is None
+    with pytest.raises(ValueError, match="mesh-sequence"):
+        make_step(pst)
+    out = hold(jst, pst, run_jax(jst, 2), "mesh sequence")
+    # the kinematic cube sits on frame 2, the free one fell
+    x = out[-1][0].x.numpy()
+    frame2 = V * np.array([1.0, 0.9, 1.0]) + np.array([0.0, 1.2, 0.0])
+    np.testing.assert_allclose(x[8:], frame2, rtol=0, atol=1e-12)
+    assert x[:8, 1].min() > 0.0

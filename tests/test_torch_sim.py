@@ -22,8 +22,12 @@ time). The port must give:
   the planes' initial origins and velocities, as JAX's does, though the
   planes moved, so a restart starts them from there again;
 * `python -m ipc_tpu_torch --device cpu` runs with jax and ipc_tpu made
-  unimportable; without --device it refuses to run without a card; the
-  host path and the QP stepper raise NotImplementedError.
+  unimportable; without --device it refuses to run without a card, on
+  either stepper; the QP stepper raises NotImplementedError;
+* the host path: the CLI without --jit-step (IPCStepper.step) writes
+  JAX's `python -m ipc_tpu` iterStats.txt to the printed precision, and
+  on an ACO scene its checkpoint holds the moved planes, as JAX's host
+  path's does, so a restart reproduces the uninterrupted run bitwise.
 """
 
 import json
@@ -318,15 +322,68 @@ def test_cli_runs_without_jax_on_the_cpu(scene_dir):
 
 def test_what_is_not_ported_raises(scene_dir, tmp_path):
     scene = os.path.join(scene_dir, "scene.txt")
-    sim = PS.Simulation(load_config(scene), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sim.run(str(tmp_path / "host"), n_steps=1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        main([scene, "--device", "cpu", "-n", "1", "-o", str(tmp_path / "cli")])
     qp = _write(scene_dir, "qp.txt", SCENE + "constraintSolver QP\n")
     with pytest.raises(NotImplementedError, match="item 14"):
         PS.Simulation(load_config(qp), device="cpu")
     if not torch.cuda.is_available():
         # no --device: the card, and no quiet fall back to the CPU
-        with pytest.raises(RuntimeError, match="CUDA"):
-            main([scene, "--jit-step", "-n", "1", "-o", str(tmp_path / "card")])
+        for i, extra in enumerate(([], ["--jit-step"])):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                main([scene, *extra, "-n", "1", "-o", str(tmp_path / f"card{i}")])
+
+
+N_HOST = 3
+
+
+def test_cli_host_path_matches_jax(scene_dir):
+    """Both CLIs without --jit-step (the host path), 3 steps of the scene."""
+    from ipc_tpu.__main__ import main as jax_main
+
+    scene = os.path.join(scene_dir, "scene.txt")
+    out_j, out_p = (os.path.join(scene_dir, d) for d in ("host_jax", "host_port"))
+    assert jax_main([scene, "-n", str(N_HOST), "-o", out_j]) == 0
+    assert main([scene, "--device", "cpu", "-n", str(N_HOST), "-o", out_p]) == 0
+    with open(os.path.join(out_p, "iterStats.txt")) as f:
+        it_p = f.read()
+    with open(os.path.join(out_j, "iterStats.txt")) as f:
+        it_j = f.read()
+    assert it_p == it_j
+    assert len(it_p.splitlines()) > N_HOST  # more than one Newton iteration per step
+    rp, rj = _rows(os.path.join(out_p, "resultsStats.txt")), _rows(
+        os.path.join(out_j, "resultsStats.txt"))
+    assert rp[:2] == rj[:2]
+    with open(os.path.join(out_p, "info.txt")) as f:
+        info = json.load(f)
+    assert info["operator_applications"] > 0 and info["host_syncs"] > 0
+    assert [s["iters"] for s in info["step_stats"]] == [
+        sum(1 for r in it_p.splitlines() if r.split()[0] == str(k)) for k in range(N_HOST)]
+    for k in range(1, N_HOST + 1):
+        zp = np.load(os.path.join(out_p, f"status{k}.npz"))
+        zj = np.load(os.path.join(out_j, f"status{k}.npz"))
+        np.testing.assert_allclose(zp["x"], zj["x"], rtol=0, atol=1e-9)
+
+
+def test_host_path_aco_restart_is_bitwise(tmp_path):
+    """On the host path the stepper moves the planes and a checkpoint holds
+    where they are, as JAX's host path's does: a restart from status2
+    reproduces the uninterrupted run's status4 bitwise, planes included."""
+    V, T = cube(1)
+    JIO.write_msh(str(tmp_path / "cube.msh"), V, T)
+    path = _write(str(tmp_path), "aco.txt", ACO_SCENE)
+    JS.Simulation(jload(path)).run(str(tmp_path / "j"), n_steps=2, save_every=2)
+    PS.Simulation(load_config(path), device="cpu").run(str(tmp_path / "p"), n_steps=4,
+                                                       save_every=2)
+    zj, zp = (np.load(str(tmp_path / d / "status2.npz")) for d in ("j", "p"))
+    initial = np.array([[-0.3, 0.0, 0.0], [1.3, 0.0, 0.0]])
+    assert np.abs(zp["hs_origin"] - initial).max() > 1e-3  # the planes moved
+    np.testing.assert_allclose(zp["hs_origin"], zj["hs_origin"], rtol=0, atol=1e-12)
+    assert np.array_equal(zp["aco_vel"], zj["aco_vel"])
+    np.testing.assert_allclose(zp["x"], zj["x"], rtol=0, atol=1e-9)
+    restart = _write(str(tmp_path), "aco_restart.txt",
+                     ACO_SCENE + f"restart {tmp_path / 'p' / 'status2.npz'}\n")
+    sim = PS.Simulation(load_config(restart), device="cpu")
+    s = sim.run(str(tmp_path / "r"), n_steps=4, save_every=2)
+    assert s.step == 4
+    ref, got = (np.load(str(tmp_path / d / "status4.npz")) for d in ("p", "r"))
+    for f in ("x", "v", "a", "hs_origin", "aco_vel"):
+        assert got[f].tobytes() == ref[f].tobytes(), f
