@@ -113,20 +113,48 @@ and ends the run with a non-zero exit code (nothing is caught):
      their 1-ulp responses run in two single-threaded worker processes
      started after phase 2; the card's steps run in a child process on the
      same card beside phases 5, 9 and 11. Both are stopped when the run
-     ends.
+     ends;
+ 15. QP path: the QP/SQP comparison stepper at full width,
+     QPStepper(mode="SQP", constraint_type="graphics") on the contact
+     path's boxes (96,000 tets, the ground half-space and self-contact)
+     from that phase's state after step 7, for 2 steps through the
+     landing (steps 8-9). Per step: SQP iterations, the ADMM iteration
+     list, active constraints, PCG iterations, tet_hv launches, operator
+     applications, host syncs, wall seconds, and whether the edge-triangle
+     test finds an intersection (the QP methods do not exclude one, so it
+     is printed, not checked). Checked per step: finite, ymin > -0.05,
+     the upper box's lowest vertex above the lower box's midplane, tet_hv
+     launches equal to operator applications; then the last step taken
+     again from the same state must be bitwise equal, with its second
+     ADMM call (active rows, its three CUDA graphs captured and replayed)
+     under torch.profiler: the device's `tet_rows_kernel` launches (pass
+     A of tet_hv) equal tet_hv.launches and the operator applications
+     counted over the call;
+ 16. QP reference: the QP stepper in float64, card against CPU from the
+     CPU's state before each step (counts equal or the CPU's own under a
+     1-ulp change of x, x within max(1e-9, twice its 1-ulp response)): a
+     cube dropping onto the ground under SQP / graphics (2 steps), two
+     stacked cubes in contact range under SQP / Verschoor and QP / volume
+     (2 each), and a scene file with constraintSolver SQP through the CLI
+     entry point on both (3 steps: iterStats.txt counts equal, status3
+     x within 1e-9);
+ 17. diagnostic: `python -m ipc_tpu_torch.diagnostic all` on the card:
+     every mode passes, the dtype modes in float64 and float32.
 
-Order: the timed phases 1-4, 6-8, 10, 12 and 13 run first, alone on the
-card; then the references 5, 9 and 11, with 14 beside them.
+Order: the timed phases 1-4, 6-8, 10, 12, 13 and 15 run first, alone on
+the card; then the references 5, 9 and 11, with 14 in one child process
+and 16-17 in another beside them.
 
 The line before the last is the kernels record (its launches: the
-contact, twist, driver and host paths', at the driver shape), the last
-line {"ok": true, "device": {...}}. Without a CUDA device the run fails
-in phase 1 and prints neither.
+contact, twist, driver, host and QP paths', at the driver shape), the
+last line {"ok": true, "device": {...}}. Without a CUDA device the run
+fails in phase 1 and prints neither.
 
-`python3 chip_smoke.py --only host_path,host_reference` runs the device
-and build phases and the phases named (a check of a few phases; its
-kernels line counts only their launches and times the kernel at the
-driver shape alone).
+`python3 chip_smoke.py --only qp_path,qp_reference,diagnostic` runs the
+device and build phases and the phases named (a check of a few phases;
+its kernels line counts only their launches and times the kernel at the
+driver shape alone; qp_path alone first runs the contact scene's 8
+device steps to reach its start).
 """
 
 import json
@@ -339,11 +367,13 @@ def phase_contact_path(device):
     ops0, syncs0 = step.operator_applications, step.host_syncs
     total, newton = 0.0, 0
     saw_active = saw_fric = False
-    post_impact = None
+    post_impact = qp_lead = None
     for i in range(10):
         ops_i, syncs_i = step.operator_applications, step.host_syncs
         t0 = time.perf_counter()
         pre = state
+        if i == 8:
+            qp_lead = pre  # after step 7, before the upper box lands
         state, s = step(state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -376,7 +406,121 @@ def phase_contact_path(device):
     check(launches > 0, "tet_hv launched on the contact path")
     check(launches == ops, "one tet_hv launch per operator application (contact)")
     _bitwise_repeat(step, post_impact, "contact")
+    return launches, (st, qp_lead)
+
+
+def _qp_lead(device):
+    """The contact path's scene and its state after step 7 (8 device
+    steps), for a run whose contact path phase was not asked for."""
+    import torch
+
+    from ipc_tpu_torch.jit_step import make_step
+    from ipc_tpu_torch.scenes import build_scene
+
+    st = build_scene(20, torch.float32, device, with_contact=True)
+    step = make_step(st)
+    state = st.initial_state()
+    for _ in range(8):
+        state, _ = step(state)
+    return st, state
+
+
+def phase_qp_path(device, lead, n_steps=2):
+    """The QP/SQP comparison path at full width (module docstring, phase
+    15): the contact path's boxes (96,000 tets, ground half-space and
+    self-contact) from its state after step 7, through
+    QPStepper(mode="SQP", constraint_type="graphics") for n_steps steps.
+    Returns the run's tet_hv launches (the repeat's not counted)."""
+    import torch
+
+    from ipc_tpu_torch.ops.tet_hv import tet_hv
+    from ipc_tpu_torch.qp import stepper as qp_stepper
+    from ipc_tpu_torch.qp.admm import admm_qp
+    from ipc_tpu_torch.qp.stepper import QPStepper
+
+    st, state = lead if lead is not None else _qp_lead(device)
+    q = QPStepper(st.mesh, st.meta, st.p, halfspaces=st.halfspaces, self_contact=st.sc,
+                  mode="SQP", constraint_type="graphics")
+    n_lower = st.mesh.x_rest.shape[0] // 2
+    mid = 0.5 * (st.mesh.x_rest[:n_lower, 1].min() + st.mesh.x_rest[:n_lower, 1].max()).item()
+    _sync(device)
+    tet_hv.launches = 0
+    ops0 = q.operator_applications
+    total, repeat = 0.0, None
+    for i in range(n_steps):
+        ops_i, syncs_i, pcg_i, hv_i = (q.operator_applications, q.host_syncs,
+                                       q.pcg_iterations, tet_hv.launches)
+        t0 = time.perf_counter()
+        nxt, qs = q.step(state)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        total += wall
+        for t in (nxt.x, nxt.v):
+            check(bool(torch.isfinite(t).all()), "finite state (QP path)")
+        ymin = nxt.x[:, 1].min().item()
+        upper = nxt.x[n_lower:, 1].min().item()
+        hit = bool(st.sc.has_intersection(nxt.x)[0])
+        ops, hv = q.operator_applications - ops_i, tet_hv.launches - hv_i
+        print(f"[qp] step {8 + i}: sqp_iters={qs.iters} admm_iters={qs.pcg_iters} "
+              f"active={qs.n_constraints[-1]} pcg_iters={q.pcg_iterations - pcg_i} "
+              f"tet_hv_launches={hv} operator_applications={ops} "
+              f"host_syncs={q.host_syncs - syncs_i} ymin={ymin:.6g} "
+              f"upper_min={upper:.6g} (midplane {mid:.6g}) intersection={hit} "
+              f"wall_s={wall:.4f}", flush=True)
+        check(ymin > -0.05, "QP path: ymin > -0.05")
+        check(upper > mid, "QP path: the upper box stays above the lower box's midplane")
+        check(hv == ops, "one tet_hv launch per operator application (QP path)")
+        repeat = (state, nxt)
+        state = nxt
+    launches = tet_hv.launches
+    check(launches == q.operator_applications - ops0 > 0, "tet_hv launched on the QP path")
+    print(f"[qp] {n_steps} steps in {total:.3f} s ({total / n_steps:.4f} s per step); "
+          f"tet_hv launches={launches}", flush=True)
+    pre, first = repeat  # the last step, the cheaper one after the landing
+    traced = {}
+    qp_stepper.admm_qp = _traced_second_call(admm_qp, q, traced)
+    try:
+        again, _ = q.step(pre)
+    finally:
+        qp_stepper.admm_qp = admm_qp
+    _sync(device)
+    same = bool(torch.equal(again.x, first.x))
+    print(f"[qp] step {7 + n_steps} twice from one state: bitwise_equal={same}", flush=True)
+    check(same, "QP step bitwise repeatable")
+    print(f"[qp] its second ADMM call under torch.profiler: {traced['rows']} rows, "
+          f"{traced['admm']} ADMM and {traced['pcg']} PCG iterations; device "
+          f"tet_rows_kernel launches={traced['device']} tet_hv.launches={traced['counted']} "
+          f"operator applications={traced['ops']}", flush=True)
+    check(traced["admm"] > 1 and traced["rows"] > 0, "the traced ADMM call ran its graphs")
+    check(traced["device"] == traced["counted"] == traced["ops"],
+          "the device ran one tet_hv launch per counted launch and operator application, "
+          "graph replays included (QP path)")
+    tet_hv.launches = launches  # the repeat's launches are not the main run's
     return launches
+
+
+def _traced_second_call(admm_qp, q, traced):
+    """admm_qp, with its second call (active rows, ADMM's three CUDA graphs
+    captured and replayed) under torch.profiler: fills `traced` with the
+    device's tet_rows_kernel launches (pass A of tet_hv, once per call)
+    beside tet_hv.launches and q's operator applications over the call."""
+    from ipc_tpu_torch.hv_timing import device_launches
+    from ipc_tpu_torch.ops.tet_hv import tet_hv
+
+    calls = []
+
+    def admm(*a, **kw):
+        calls.append(1)
+        if len(calls) != 2:
+            return admm_qp(*a, **kw)
+        n0, ops0, pcg0 = tet_hv.launches, q.operator_applications, q.pcg_iterations
+        out, n = device_launches(lambda: admm_qp(*a, **kw), "tet_rows_kernel")
+        traced.update(device=n, counted=tet_hv.launches - n0,
+                      ops=q.operator_applications - ops0, admm=out[2],
+                      pcg=q.pcg_iterations - pcg0, rows=int(a[2].shape[0]))
+        return out
+
+    return admm
 
 
 def phase_bench_timing(device):
@@ -685,6 +829,148 @@ def phase_variants_reference(device, contact_lead):
             check(al_total > 0, "the blocked press ran the moving-DBC AL")
         if name == "cube_on_plate":
             check(gs.fric_count > 0, "friction against the plate is captured")
+
+
+def _qp_counts(stats):
+    """(outer iterations, ADMM iterations per outer iteration, active-set
+    sizes) of a QP step."""
+    return stats.iters, tuple(stats.pcg_iters), tuple(stats.n_constraints)
+
+
+def _qp_scenes():
+    """{name: (QPStepper factory on a device, steps compared)} of the QP
+    reference, cube(1) scenes in float64: a cube 0.004 above the ground
+    (SQP, graphics; its second step runs ADMM into its cap), and a cube on
+    the ground with a second 0.004 above it (self-contact; the pair rows
+    join in the second step) under SQP / Verschoor and QP / volume."""
+    import torch
+
+    from ipc_tpu_torch.contact.halfspace import HalfSpace, HalfSpaceParams
+    from ipc_tpu_torch.contact.pipeline import SelfContact
+    from ipc_tpu_torch.mesh import build_mesh, merge_meshes
+    from ipc_tpu_torch.models.primitives import cube
+    from ipc_tpu_torch.qp.stepper import QPStepper
+    from ipc_tpu_torch.timestepper import SimParams
+
+    def make(mode, ctype, two, y):
+        def build(dev):
+            V, T = cube(1)
+            parts = [(V + np.array([0.0, y, 0.0]), T)]
+            if two:
+                parts.append((V + np.array([0.0, y + 1.004, 0.0]), T))
+            V, T, comp, ranges = merge_meshes(parts)
+            mesh, meta = build_mesh(V, T, vert_comp=comp, comp_ranges=ranges,
+                                    dtype=torch.float64, device=dev)
+            return QPStepper(mesh, meta, SimParams(), halfspaces=[HalfSpace(HalfSpaceParams())],
+                             self_contact=SelfContact(mesh, meta) if two else None, mode=mode,
+                             constraint_type=ctype)
+        return build
+
+    return {
+        "drop_sqp_graphics": (make("SQP", "graphics", False, 0.004), 2),
+        "cubes_sqp_verschoor": (make("SQP", "verschoor", True, 0.001), 2),
+        "cubes_qp_volume": (make("QP", "volume", True, 0.001), 2),
+    }
+
+
+QP_SCENE = """shapes input 1
+{msh} 0 0.004 0  0 0 0  1 1 1
+time 0.2 0.025
+density 1000
+stiffness 1e5 0.4
+halfSpace  0 0 0  0 1 0  0  0
+constraintSolver SQP
+constraintType graphics
+"""
+
+
+def _qp_hold(tag, cpu_st, card_st, pre, rng, device):
+    """One QP step from the numpy state `pre` on the CPU and on the card
+    (both float64), held as _hold holds a device step: the outer count,
+    the ADMM list and the active-set sizes equal, or equal to the CPU's
+    own under one of two 1-ulp changes of x; x within max(1e-9, twice the
+    CPU's 1-ulp response), measured only when x or a count differ.
+    Returns the CPU's state."""
+    import torch
+
+    from ipc_tpu_torch.convert import state_from_numpy
+
+    nxt, ref = cpu_st.step(state_from_numpy(pre, "cpu", torch.float64))
+    got, gs = card_st.step(state_from_numpy(pre, device, torch.float64))
+    x_ref = nxt.x.numpy()
+    dx = float(np.abs(got.x.cpu().numpy() - x_ref).max())
+    rc, gc = _qp_counts(ref), _qp_counts(gs)
+    sens, outcomes = 0.0, [rc]
+    for _ in range(2 if dx > 1e-9 or gc != rc else 0):
+        pert = dict(pre, x=pre["x"] + rng.choice([-1.0, 1.0], size=pre["x"].shape)
+                    * np.spacing(np.abs(pre["x"])))
+        sp, rp = cpu_st.step(state_from_numpy(pert, "cpu", torch.float64))
+        sens = max(sens, float(np.abs(sp.x.numpy() - x_ref).max()))
+        outcomes.append(_qp_counts(rp))
+    tol = max(1e-9, 2.0 * sens)
+    print(f"[{tag}]: card outer/admm/active={gc[0]}/{list(gc[1])}/{gc[2][-1]} CPU "
+          f"{rc[0]}/{list(rc[1])}/{rc[2][-1]}; max |dx|={dx:.3e} (limit {tol:.3e})", flush=True)
+    check(gc in outcomes, f"{tag}: the CPU's counts (or its own under a 1-ulp change)")
+    check(dx <= tol, f"{tag}: card agrees with the CPU reference")
+    return nxt
+
+
+def phase_qp_reference(device):
+    """The QP/SQP stepper in float64, card against CPU (module docstring,
+    phase 16): the cube scenes of _qp_scenes, each step from the CPU's
+    state before it, then a scene file with constraintSolver SQP through
+    the CLI entry point on both (3 steps, in build/qp_reference/):
+    iterStats.txt's counts equal, status3.npz's x within 1e-9."""
+    import os
+    import shutil
+
+    import torch
+
+    from ipc_tpu_torch import io_mesh
+    from ipc_tpu_torch.__main__ import main as cli_main
+    from ipc_tpu_torch.convert import state_to_numpy
+    from ipc_tpu_torch.models.primitives import cube
+
+    rng = np.random.default_rng(7)
+    for name, (make, n_steps) in _qp_scenes().items():
+        cpu_st, card_st = make("cpu"), make(device)
+        s = cpu_st.initial_state()
+        for i in range(n_steps):
+            s = _qp_hold(f"qp-ref {name} step {i}", cpu_st, card_st, state_to_numpy(s), rng,
+                         device)
+        check(card_st.operator_applications > 0, f"qp-ref {name}: the card stepper ran")
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "qp_reference")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    msh, scene = os.path.join(workdir, "cube.msh"), os.path.join(workdir, "qp.txt")
+    io_mesh.write_msh(msh, *cube(1))
+    with open(scene, "w") as f:
+        f.write(QP_SCENE.format(msh=msh))
+    runs = {}
+    # the card is the CLI's default (a CPU rehearsal names its device)
+    card = [] if torch.device(device).type == "cuda" else ["--device", str(device)]
+    for who, extra in (("card", card), ("cpu", ["--device", "cpu"])):
+        out = os.path.join(workdir, who)
+        check(cli_main([scene, "-o", out, "-n", "3"] + extra) == 0,
+              f"the constraintSolver SQP scene runs through the CLI ({who})")
+        runs[who] = (_read_rows(os.path.join(out, "iterStats.txt")),
+                     np.load(os.path.join(out, "status3.npz"))["x"])
+    (card_rows, card_x), (cpu_rows, cpu_x) = runs["card"], runs["cpu"]
+    dx = float(np.abs(card_x - cpu_x).max())
+    same = [r[:3] for r in card_rows] == [r[:3] for r in cpu_rows]
+    print(f"[qp-ref] scene file, 3 steps through the CLI: {len(card_rows)} iterStats lines, "
+          f"same counts={same}, status3 max |dx|={dx:.3e}", flush=True)
+    check(same and len(card_rows) > 3, "the SQP scene's iterStats.txt counts agree")
+    check(dx <= 1e-9, "the SQP scene's status3.npz agrees with the CPU")
+
+
+def phase_diagnostic():
+    """python -m ipc_tpu_torch.diagnostic all on the card (module
+    docstring, phase 17)."""
+    from ipc_tpu_torch.diagnostic import main as diagnostic_main
+
+    check(diagnostic_main(["all"]) == 0, "every diagnostic mode passes on the card "
+          "(no --device: the card)")
 
 
 DRIVER_SCENE = """energy NH
@@ -1152,6 +1438,39 @@ def join_host_reference(child):
     check(child.exitcode == 0, f"the host reference passed (exit code {child.exitcode})")
 
 
+def _card_phases_process(names):
+    """Process target: the named untimed phases on the card, in order."""
+    from ipc_tpu_torch.device import require_cuda
+
+    device = require_cuda()
+    for name in names:
+        t0 = time.perf_counter()
+        if name == "diagnostic":
+            phase_diagnostic()
+        else:
+            phase_qp_reference(device)
+        print(f"[phase] {name} (child): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def start_card_phases_process(names):
+    """Phases 16-17 in a child process on the same card, beside the other
+    references (None when neither is run)."""
+    import multiprocessing
+
+    if not names:
+        return None
+    child = multiprocessing.get_context("spawn").Process(target=_card_phases_process,
+                                                         args=(names,))
+    child.start()
+    return child
+
+
+def join_card_phases(child):
+    child.join()
+    check(child.exitcode == 0, f"the QP reference and the diagnostic passed (exit code "
+          f"{child.exitcode})")
+
+
 def main(argv=None):
     import argparse
     import multiprocessing
@@ -1180,7 +1499,7 @@ def main(argv=None):
     run("build", phase_build, always=True)
     # the host reference's CPU side runs in two single-threaded worker
     # processes beside the card phases before it
-    pool = cpu_jobs = None
+    pool = cpu_jobs = card_child = None
     if only is None or "host_reference" in only:
         pool = multiprocessing.get_context("spawn").Pool(2)
         cpu_jobs = start_host_reference(pool)
@@ -1191,24 +1510,35 @@ def main(argv=None):
         records = run("kernel_vs_plain", phase_kernel_vs_plain, device)
         run("ground_path", phase_ground_path, device)
         run("broadphase", phase_broadphase, device)
-        launches += run("contact_path", phase_contact_path, device) or 0
+        contact = run("contact_path", phase_contact_path, device)
+        qp_lead = None  # the contact path's scene and state after step 7
+        if contact is not None:
+            launches += contact[0]
+            qp_lead = contact[1]
         run("bench_timing", phase_bench_timing, device)
         launches += run("twist_path", phase_twist_path, device) or 0
         launches += run("driver_path", phase_driver_path, device) or 0
         launches += run("host_path", phase_host_path, device) or 0
-        # then the references, which are not timed: the host reference in a
-        # child process on the same card beside the others
+        launches += run("qp_path", phase_qp_path, device, qp_lead) or 0
+        # then the references, which are not timed: the host reference, and
+        # the QP reference with the diagnostic, in two child processes on
+        # the same card beside the others
         child = start_host_reference_process(cpu_jobs)
+        card_child = start_card_phases_process(
+            [n for n in ("qp_reference", "diagnostic") if only is None or n in only])
         run("ground_reference", phase_ground_reference, device)
         contact_lead = run("contact_reference", phase_contact_reference, device)
         if contact_lead is None and (only is None or "variants_reference" in only):
             contact_lead = _contact_lead()
         run("variants_reference", phase_variants_reference, device, contact_lead)
+        if card_child is not None:
+            run("qp_reference+diagnostic", join_card_phases, card_child, always=True)
         run("host_reference", join_host_reference, child)
     finally:
-        if child is not None and child.is_alive():
-            child.terminate()
-            child.join()
+        for c in (child, card_child):
+            if c is not None and c.is_alive():
+                c.terminate()
+                c.join()
         if pool is not None:
             pool.terminate()
             pool.join()

@@ -52,7 +52,7 @@ import warnings
 import numpy as np
 import torch
 
-__all__ = ["device_ms", "kernel_split_us", "hv_problem", "hv_bound", "assemble_csr", "measure"]
+__all__ = ["device_ms", "kernel_split_us", "device_launches", "hv_problem", "hv_bound", "assemble_csr", "measure"]
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
@@ -101,6 +101,18 @@ def kernel_split_us(fn, flush):
             m = re.search(r"(\w+_kernel)\b", key)
             out[m.group(1) if m else key[:60]] = us
     return out
+
+
+def device_launches(fn, name):
+    """(fn(), the device launches of kernels whose name holds `name` while
+    fn ran), from a torch.profiler trace of the call: the card's own record,
+    CUDA graph replays included, to hold a wrapper's launch count against."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key)
+    return out, n
 
 
 SCENES = (("boxes", 8), ("boxes", 20), ("twist", 100), ("driver", 20))

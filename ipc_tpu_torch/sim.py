@@ -29,10 +29,14 @@ package's default) or, with use_jit_step=True, the device step
 records each step's stats, and the stepper's operator applications and
 host syncs.
 
+`constraintSolver QP|SQP` builds the QP/SQP stepper (qp/stepper.py) in
+place of IPCStepper, as the JAX package does; it runs on the host path
+only (the device step raises ValueError for it: the JAX package's jit
+step would run the IP solve instead).
+
 Not ported: the capacity regrow of the JAX jit path (`_regrow_and_redo`,
 `grow_caps`, `_check_capacity_budget`: the port's candidate sets are
-exact-size). Raised, not replaced: `constraintSolver QP/SQP` (ROADMAP
-item 14).
+exact-size).
 """
 
 import dataclasses
@@ -316,11 +320,16 @@ class Simulation:
         self.params = SimParams(**p)
 
         if cfg.constraint_solver in ("QP", "SQP"):
-            raise NotImplementedError(
-                f"constraintSolver {cfg.constraint_solver}: the QP/SQP stepper is not ported "
-                "yet (ROADMAP item 14)")
-        self.stepper = IPCStepper(mesh, meta, self.params, halfspaces=halfspaces,
-                                  self_contact=sc, script=script)
+            from ipc_tpu_torch.qp.stepper import QPStepper
+
+            self.stepper = QPStepper(mesh, meta, self.params, halfspaces=halfspaces,
+                                     self_contact=sc, script=script,
+                                     mode=cfg.constraint_solver,
+                                     constraint_type=cfg.constraint_type,
+                                     constraint_offset=cfg.constraint_offset)
+        else:
+            self.stepper = IPCStepper(mesh, meta, self.params, halfspaces=halfspaces,
+                                      self_contact=sc, script=script)
         self.step_fn = None
 
     def initial_state(self):
@@ -357,6 +366,9 @@ class Simulation:
         """Offline loop: step (the host path, or the device step with
         use_jit_step), write status checkpoints, surface meshes and logs into
         out_dir. `verbose` prints the host path's Newton iterations."""
+        if use_jit_step and self.cfg.constraint_solver in ("QP", "SQP"):
+            raise ValueError(f"use_jit_step runs the IP solve; constraintSolver "
+                             f"{self.cfg.constraint_solver} runs on the host path only")
         if use_jit_step and self.script is not None and self.script.host_only():
             raise ValueError("use_jit_step does not support mesh-sequence scripts "
                              "(per-frame file IO); run the host path for those scenes")

@@ -436,7 +436,7 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
     return types.SimpleNamespace(
         hv_table=hv_table, aggregates=aggregates, coarse_assemble=coarse_assemble,
         lag_coarse=lag_coarse, counters=counters, dbc=dbc, dbc_sv=dbc_sv,
-        e_leq=e_leq, e_out=e_out, e_float=e_float, energy=energy,
+        e_leq=e_leq, e_out=e_out, e_float=e_float, energy=energy, gradient=gradient,
         grad_no_contact=grad_no_contact, grad_contact_unit=grad_contact_unit,
         search_dir=search_dir, jacobi_dir=jacobi_dir,
         assemble_coarse=assemble_coarse, feasible_alpha_local=feasible_alpha_local,

@@ -323,8 +323,12 @@ def test_cli_runs_without_jax_on_the_cpu(scene_dir):
 def test_what_is_not_ported_raises(scene_dir, tmp_path):
     scene = os.path.join(scene_dir, "scene.txt")
     qp = _write(scene_dir, "qp.txt", SCENE + "constraintSolver QP\n")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        PS.Simulation(load_config(qp), device="cpu")
+    # constraintSolver QP builds the QP stepper; the device step (the IP
+    # solve) does not take it
+    sim = PS.Simulation(load_config(qp), device="cpu")
+    assert type(sim.stepper).__name__ == "QPStepper" and sim.stepper.mode == "QP"
+    with pytest.raises(ValueError, match="host path only"):
+        sim.run(str(tmp_path / "qp"), n_steps=1, use_jit_step=True)
     if not torch.cuda.is_available():
         # no --device: the card, and no quiet fall back to the CPU
         for i, extra in enumerate(([], ["--jit-step"])):

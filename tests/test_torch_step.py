@@ -208,6 +208,15 @@ def test_port_never_imports_jax():
         "import ipc_tpu_torch.__main__, ipc_tpu_torch.sim, ipc_tpu_torch.config\n"
         "import ipc_tpu_torch.io_mesh, ipc_tpu_torch.utils.observability\n"
         "import ipc_tpu_torch.utils.render\n"
+        "import ipc_tpu_torch.diagnostic, ipc_tpu_torch.meshproc\n"
+        "from ipc_tpu_torch.qp.stepper import QPStepper\n"
+        "q = QPStepper(st.mesh, st.meta, st.p, self_contact=st.sc, mode='SQP',\n"
+        "              constraint_type='verschoor')\n"
+        "s, stats = q.step(q.initial_state())\n"
+        "assert stats.iters > 0 and q.operator_applications > 0\n"
+        "import contextlib, io\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert ipc_tpu_torch.diagnostic.ccd_probe('cpu')\n"
         "sys.modules.pop('jax')\n"
         "sys.modules.pop('ipc_tpu')\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ipc_tpu')\n"
@@ -241,6 +250,9 @@ def test_port_sources_import_neither_jax_nor_ipc_tpu():
     for d, _, files in os.walk(os.path.join(ROOT, "ipc_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 30
+    for name in ("qp/constraints.py", "qp/admm.py", "qp/stepper.py", "diagnostic.py",
+                 "meshproc.py"):
+        assert os.path.join(ROOT, "ipc_tpu_torch", name) in paths
     bad = {os.path.relpath(p, ROOT): sorted(_imported_modules(p) & {"jax", "jaxlib", "ipc_tpu"})
            for p in paths}
     assert not {p: m for p, m in bad.items() if m}
