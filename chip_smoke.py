@@ -12,7 +12,9 @@ and ends the run with a non-zero exit code (nothing is caught):
      at the scenes' shapes (the boxes at n_cells 8 and 20: 6,144 and
      96,000 tets; the twist at n = 100: 60,000 tets; the driver scene: the
      boxes at 20 plus the plate's 4 tet-less vertices, whose rows must be
-     exact zeros; float32 and float64), with tolerances 1e-5 (f32) / 1e-12 (f64) x the
+     exact zeros; the shard of a 2-rank sharded step: rank 0's 48,000
+     tets of the boxes at 20 over the padded mesh's 18,524 vertices, the
+     rows its tets do not touch exact zeros; float32 and float64), with tolerances 1e-5 (f32) / 1e-12 (f64) x the
      plain result's max |.| and bitwise-equal repeats; device times
      (ipc_tpu_torch/hv_timing.py: CUDA events, median of 20, L2 flushed)
      of the kernel, the plain version and the library yardstick (cuSPARSE
@@ -51,13 +53,13 @@ and ends the run with a non-zero exit code (nothing is caught):
      count differ);
  10. twist path: build_twist_scene(100, float32,
      "cuda") (the paper's mat100x100 twist: 60,000 tets, 20,402 vertices,
-     self-contact, scripted handles) -> make_step for 25 steps (1.0 s;
-     each handle turns 72 degrees). Per step: Newton and PCG iterations,
+     self-contact, scripted handles) -> make_step for 12 steps (0.48 s;
+     each handle turns 34.56 degrees). Per step: Newton and PCG iterations,
      candidate and active counts, script_scale, al_iters, kappa, host
      syncs, wall seconds. After every step: finite, no edge-triangle
      intersection, every tet's det F > 0, script_scale == 1. At the end:
      the handle rows equal the exact rotation of their rest positions
-     (numpy float64) within 25 x 4 eps(f32) x max|x| plus the Newton
+     (numpy float64) within 12 x 4 eps(f32) x max|x| plus the Newton
      tolerance, the handles turned, tet_hv launched once per operator
      application (counts zeroed just before), and one step taken twice from
      one state is bitwise equal;
@@ -125,11 +127,10 @@ and ends the run with a non-zero exit code (nothing is caught):
      is printed, not checked). Checked per step: finite, ymin > -0.05,
      the upper box's lowest vertex above the lower box's midplane, tet_hv
      launches equal to operator applications; then the last step taken
-     again from the same state must be bitwise equal, with its second
+     again from the same state must be bitwise equal, and over its second
      ADMM call (active rows, its three CUDA graphs captured and replayed)
-     under torch.profiler: the device's `tet_rows_kernel` launches (pass
-     A of tet_hv) equal tet_hv.launches and the operator applications
-     counted over the call;
+     the tet_hv calls the card ran (the kernel's own device counter)
+     equal tet_hv.launches and the operator applications counted;
  16. QP reference: the QP stepper in float64, card against CPU from the
      CPU's state before each step (counts equal or the CPU's own under a
      1-ulp change of x, x within max(1e-9, twice its 1-ulp response)): a
@@ -139,16 +140,43 @@ and ends the run with a non-zero exit code (nothing is caught):
      entry point on both (3 steps: iterStats.txt counts equal, status3
      x within 1e-9);
  17. diagnostic: `python -m ipc_tpu_torch.diagnostic all` on the card:
-     every mode passes, the dtype modes in float64 and float32.
+     every mode passes, the dtype modes in float64 and float32;
+ 18. sharded path: the contact path's boxes (96,000 tets, float32) split
+     over 2 ranks (ipc_tpu_torch.parallel.launch of _sharded_job), from
+     that phase's state after step 7, saved in build/sharded_path/, through
+     steps 8-9, the landing. The backend is NCCL with one card per rank
+     when the machine has two cards, else gloo with both ranks on card 0
+     (NCCL refuses two ranks on one card). Printed: the backend, each
+     rank's shard bytes (what is split, what replicated), per step the
+     Newton and PCG iterations, the collectives, each rank's own
+     candidate and active counts, wall seconds. Checked after every step
+     on every rank: finite, ymin > 0, no edge-triangle intersection.
+     Across the ranks: x bitwise equal; the union of the ranks' candidate
+     pairs at step 8's start equals the single-rank fused_candidates set
+     on the same padded x, each pair on one rank; each rank's tet_hv
+     launches equal its operator applications; step 9 taken twice from
+     one state bitwise equal. A rank that fails or dies fails the phase;
+ 19. sharded reference: the n_cells=2 boxes' steps 8-9 in float64 on the
+     card, each step from the CPU's state before it. On 2 gloo ranks,
+     held as phase 9 holds a contact step against the CPU's unsharded
+     make_step over the same padded mesh (the 1-ulp response the largest
+     of six random sign patterns, where phase 9 takes two: at the padded
+     step 8 it ranges 7.6e-9 to 2.8e-8 over six on the CPU, so two can
+     fall an order below it), the ranks bitwise equal. On a 1-rank NCCL
+     group at the same time: x and stats bitwise equal to the card's own
+     unsharded make_step over the padded mesh (a sum over one rank is the
+     identity). The CPU side runs in a worker process of the host
+     reference's pool, beside the timed phases.
 
-Order: the timed phases 1-4, 6-8, 10, 12, 13 and 15 run first, alone on
-the card; then the references 5, 9 and 11, with 14 in one child process
-and 16-17 in another beside them.
+Order: the timed phases 1-4, 6-8, 10, 12, 13, 15 and 18 run first, alone
+on the card; then the references 5, 9 and 11, with 14 in one child
+process and 16, 17 and 19 in another beside them.
 
 The line before the last is the kernels record (its launches: the
-contact, twist, driver, host and QP paths', at the driver shape), the
-last line {"ok": true, "device": {...}}. Without a CUDA device the run
-fails in phase 1 and prints neither.
+contact, twist, driver, host, QP and sharded paths', the last summed
+over its ranks; timed at the driver shape), the last line
+{"ok": true, "device": {...}}. Without a CUDA device the run fails in
+phase 1 and prints neither.
 
 `python3 chip_smoke.py --only qp_path,qp_reference,diagnostic` runs the
 device and build phases and the phases named (a check of a few phases;
@@ -487,10 +515,10 @@ def phase_qp_path(device, lead, n_steps=2):
     same = bool(torch.equal(again.x, first.x))
     print(f"[qp] step {7 + n_steps} twice from one state: bitwise_equal={same}", flush=True)
     check(same, "QP step bitwise repeatable")
-    print(f"[qp] its second ADMM call under torch.profiler: {traced['rows']} rows, "
-          f"{traced['admm']} ADMM and {traced['pcg']} PCG iterations; device "
-          f"tet_rows_kernel launches={traced['device']} tet_hv.launches={traced['counted']} "
-          f"operator applications={traced['ops']}", flush=True)
+    print(f"[qp] its second ADMM call: {traced['rows']} rows, {traced['admm']} ADMM and "
+          f"{traced['pcg']} PCG iterations; tet_hv calls the card ran={traced['device']} "
+          f"tet_hv.launches={traced['counted']} operator applications={traced['ops']}",
+          flush=True)
     check(traced["admm"] > 1 and traced["rows"] > 0, "the traced ADMM call ran its graphs")
     check(traced["device"] == traced["counted"] == traced["ops"],
           "the device ran one tet_hv launch per counted launch and operator application, "
@@ -500,10 +528,10 @@ def phase_qp_path(device, lead, n_steps=2):
 
 
 def _traced_second_call(admm_qp, q, traced):
-    """admm_qp, with its second call (active rows, ADMM's three CUDA graphs
-    captured and replayed) under torch.profiler: fills `traced` with the
-    device's tet_rows_kernel launches (pass A of tet_hv, once per call)
-    beside tet_hv.launches and q's operator applications over the call."""
+    """admm_qp, whose second call (active rows, ADMM's three CUDA graphs
+    captured and replayed) fills `traced` with the tet_hv calls the card
+    ran (the kernel's device counter, hv_timing.device_launches) beside
+    tet_hv.launches and q's operator applications over the call."""
     from ipc_tpu_torch.hv_timing import device_launches
     from ipc_tpu_torch.ops.tet_hv import tet_hv
 
@@ -514,7 +542,7 @@ def _traced_second_call(admm_qp, q, traced):
         if len(calls) != 2:
             return admm_qp(*a, **kw)
         n0, ops0, pcg0 = tet_hv.launches, q.operator_applications, q.pcg_iterations
-        out, n = device_launches(lambda: admm_qp(*a, **kw), "tet_rows_kernel")
+        out, n = device_launches(lambda: admm_qp(*a, **kw), q.device)
         traced.update(device=n, counted=tet_hv.launches - n0,
                       ops=q.operator_applications - ops0, admm=out[2],
                       pcg=q.pcg_iterations - pcg0, rows=int(a[2].shape[0]))
@@ -607,7 +635,7 @@ def _rotation(axis, angle):
     return np.eye(3) + np.sin(angle) * K + (1.0 - np.cos(angle)) * (K @ K)
 
 
-def phase_twist_path(device, n=100, n_steps=25):
+def phase_twist_path(device, n=100, n_steps=12):
     import torch
 
     from ipc_tpu_torch.jit_step import make_step
@@ -693,10 +721,20 @@ def _hold(tag, cpu_step, card_step, pre, rng, device):
 
     from ipc_tpu_torch.convert import state_from_numpy
 
-    nxt, ref = cpu_step(state_from_numpy(pre, "cpu", torch.float64))
     got, gs = card_step(state_from_numpy(pre, device, torch.float64))
+    return _held(tag, cpu_step, pre, got.x.cpu().numpy(), gs, rng)
+
+
+def _held(tag, cpu_step, pre, got_x, gs, rng):
+    """_hold's comparison of a card step's result (x as numpy, its stats)
+    with cpu_step from the same numpy state `pre`."""
+    import torch
+
+    from ipc_tpu_torch.convert import state_from_numpy
+
+    nxt, ref = cpu_step(state_from_numpy(pre, "cpu", torch.float64))
     x_ref = nxt.x.numpy()
-    dx = float(np.abs(got.x.cpu().numpy() - x_ref).max())
+    dx = float(np.abs(got_x - x_ref).max())
     sens, flip = 0.0, 0
     for _ in range(2 if dx > 1e-9 or gs.pcg_iters_total != ref.pcg_iters_total else 0):
         pert = dict(pre, x=pre["x"] + rng.choice([-1.0, 1.0], size=pre["x"].shape)
@@ -704,6 +742,14 @@ def _hold(tag, cpu_step, card_step, pre, rng, device):
         sp, rp = cpu_step(state_from_numpy(pert, "cpu", torch.float64))
         sens = max(sens, float(np.abs(sp.x.numpy() - x_ref).max()))
         flip = max(flip, abs(rp.pcg_iters_total - ref.pcg_iters_total))
+    _judge(tag, gs, ref, dx, sens, flip)
+    return nxt, gs
+
+
+def _judge(tag, gs, ref, dx, sens, flip):
+    """The hold rule: Newton, kappa-doubling and AL counts and script_scale
+    equal, PCG within `flip` (the CPU's count change under a 1-ulp change
+    of x), x within max(1e-9, 2 sens) (sens: the CPU's 1-ulp response)."""
     tol = max(1e-9, 2.0 * sens)
     print(f"[{tag}]: card newton/pcg/doublings/al/scale={gs.newton_iters}/"
           f"{gs.pcg_iters_total}/{gs.kappa_doublings}/{gs.al_iters}/{gs.script_scale:.6g} CPU "
@@ -716,7 +762,6 @@ def _hold(tag, cpu_step, card_step, pre, rng, device):
     check(abs(gs.pcg_iters_total - ref.pcg_iters_total) <= flip,
           f"{tag}: PCG count within the CPU's own 1-ulp change")
     check(dx <= tol, f"{tag}: card agrees with the CPU reference")
-    return nxt, gs
 
 
 def _variant_scenes():
@@ -1438,8 +1483,228 @@ def join_host_reference(child):
     check(child.exitcode == 0, f"the host reference passed (exit code {child.exitcode})")
 
 
-def _card_phases_process(names):
-    """Process target: the named untimed phases on the card, in order."""
+def _pair_keys(pairs):
+    return set(map(tuple, np.asarray(pairs).tolist()))
+
+
+def _sharded_job(rank, world, device, spec):
+    """Rank job of phases 18 and 19 (ipc_tpu_torch.parallel.launch): from
+    each numpy state of spec["starts"], spec["chain"] (default 1) steps of
+    spec's scene on the rank's shard (parallel.jobs.rank_step; `pad`: the
+    rank count the mesh is padded for). `repeat_last`: the last step of
+    each start taken again from its state (its launches not counted),
+    `repeat_equal` in its record. `union`: the rank's candidate pairs at
+    the first start and, on rank 0, the single-rank fused_candidates set on
+    the same padded x. Returns parallel.jobs.rank_info plus rows and union."""
+    import math
+
+    import torch
+
+    from ipc_tpu_torch.contact import spatial_hash as SH
+    from ipc_tpu_torch.convert import state_from_numpy
+    from ipc_tpu_torch.ops.tet_hv import tet_hv
+    from ipc_tpu_torch.parallel import jobs
+    from ipc_tpu_torch.parallel.sharding import replicate, shard_state
+
+    st, step = jobs.rank_step(rank, world, device, spec, spec.get("pad"))
+    out = dict(rows=[], union=None)
+    for k, arrays in enumerate(spec["starts"]):
+        s = replicate(shard_state(state_from_numpy(arrays, device, st.dtype), st.mesh))
+        if spec.get("union") and k == 0:
+            m, gap = st.mesh, math.sqrt(st.dHat)
+            mine = st.sc.candidate_pairs(s.x, None, gap, with_et=True)
+            full = None
+            if rank == 0:
+                f = SH.fused_candidates(s.x, m.surf_verts, m.surf_edges, m.surf_tris,
+                                        m.dbc_mask, None, gap, with_et=True, big=st.sc.big)
+                full = [f[n][0].cpu().numpy() for n in ("pt", "ee", "et")]
+            out["union"] = dict(mine=[p.cpu().numpy() for p, _ in mine], full=full)
+        pre, rows = jobs.steps(st, step, s, spec.get("chain", 1) - 1)
+        s, last = jobs.steps(st, step, pre, 1)
+        out["rows"] += rows + last
+        if spec.get("repeat_last"):
+            launches0 = tet_hv.launches
+            again, _ = step(pre)
+            tet_hv.launches = launches0  # a comparison, not a main-path run
+            out["rows"][-1]["repeat_equal"] = bool(torch.equal(again.x, s.x))
+    return dict(jobs.rank_info(st, rank), **out)
+
+
+def phase_sharded_path(device, lead, ranks=2):
+    """The contact path's boxes split over `ranks` ranks through steps 8-9
+    (module docstring, phase 18). Returns the ranks' tet_hv launches."""
+    import os
+
+    import torch
+
+    from ipc_tpu_torch.convert import state_to_numpy
+    from ipc_tpu_torch.parallel.launch import launch
+
+    _, state = lead if lead is not None else _qp_lead(device)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sharded_path")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "state7.npz")
+    arrays = state_to_numpy(state)
+    np.savez(path, **{k: arrays[k] for k in ("x", "x_prev", "v", "a", "t", "step")})
+    start = dict(np.load(path))
+    backend = "nccl" if torch.cuda.device_count() >= ranks else "gloo"
+    spec = dict(n_cells=20, dtype="float32", with_contact=True, starts=[start], chain=2,
+                repeat_last=True, union=True)
+    t0 = time.perf_counter()
+    outs = launch(_sharded_job, ranks, backend, None, (spec,), timeout=600)
+    wall = time.perf_counter() - t0
+    print(f"[sharded] build_scene(20, float32, with_contact=True) from {path}: {ranks} ranks, "
+          f"backend {outs[0]['backend']}, devices {[o['device'] for o in outs]}, "
+          f"{wall:.1f} s in all (spawn, set-up, steps, checks)", flush=True)
+    for o in outs:
+        for name, total, mine, kind in o["report"]:
+            print(f"[sharded] rank {o['rank']} {name} {total} B total, {mine} B on the rank "
+                  f"({kind})")
+        check(not o["foreign_modules"], "the rank processes load no jax")
+    for k in range(2):
+        rows = [o["rows"][k] for o in outs]
+        s = rows[0]["stats"]
+        print(f"[sharded] step {8 + k}: newton_iters={s['newton_iters']} "
+              f"pcg_iters_total={s['pcg_iters_total']} pt/ee/et={s['pt_count']}/"
+              f"{s['ee_count']}/{s['et_count']} active_pt/ee_max={s['active_pt_max']}/"
+              f"{s['active_ee_max']} fric_count={s['fric_count']} kappa={s['kappa']:.6g} "
+              f"collectives={[r['collectives'] for r in rows]} per-rank counts "
+              f"{[r['rank_counts'] for r in rows]} operator_applications="
+              f"{[r['operator_applications'] for r in rows]} tet_hv_launches="
+              f"{[r['tet_hv_launches'] for r in rows]} ymin={[r['ymin'] for r in rows]} "
+              f"intersection={[r['intersection'] for r in rows]} wall_s="
+              f"{[round(r['wall_s'], 4) for r in rows]}", flush=True)
+        for r in rows:
+            check(r["finite"], "finite state (sharded path)")
+            check(r["ymin"] > 0.0, "ymin > 0 (sharded path)")
+            check(not r["intersection"], "no edge-triangle intersection (sharded path)")
+            check(r["tet_hv_launches"] == r["operator_applications"] > 0,
+                  "one tet_hv launch per operator application on each rank (sharded)")
+            check(r["stats"] == s, "the ranks' stats agree")
+        same = all(np.array_equal(r["x"], rows[0]["x"]) for r in rows)
+        print(f"[sharded] step {8 + k}: ranks' x bitwise equal={same}")
+        check(same, "the replicated state is bitwise equal on every rank")
+    check(any(o["rows"][0]["stats"]["active_pt_max"] > 0 for o in outs),
+          "self-contact pairs active in the sharded landing")
+    full = outs[0]["union"]["full"]
+    for f, name in enumerate(("pt", "ee", "et")):
+        mine = [_pair_keys(o["union"]["mine"][f]) for o in outs]
+        union = set().union(*mine)
+        disjoint = sum(len(m) for m in mine) == len(union)
+        equal = union == _pair_keys(full[f])
+        print(f"[sharded] step 8 start {name}: per-rank {[len(m) for m in mine]}, union "
+              f"{len(union)}, single-rank {len(full[f])}: equal={equal} disjoint={disjoint}")
+        check(equal and disjoint, f"the ranks' {name} candidates partition the single-rank set")
+    for o in outs:
+        rep = o["rows"][-1]["repeat_equal"]
+        print(f"[sharded] rank {o['rank']}: step 9 twice from one state: bitwise_equal={rep}")
+        check(rep, "sharded step bitwise repeatable")
+    return sum(r["tet_hv_launches"] for o in outs for r in o["rows"])
+
+
+def _sharded_cpu_case(patterns=6):
+    """The CPU side of phase 19, run in a worker process beside the card's
+    phases: the n_cells=2 boxes' unsharded float64 step over the mesh
+    padded for 2 ranks, for steps 8-9 from _contact_lead's state; per step
+    the state before it, x after it, its stats, and its response to
+    `patterns` random 1-ulp changes of x (the largest |dx| and PCG count
+    change). Six patterns, where phase 9 takes two: at the padded step 8
+    the response ranges 7.6e-9 to 2.8e-8 over six on the CPU, so two can
+    fall an order below it."""
+    import dataclasses
+
+    import torch
+
+    from ipc_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from ipc_tpu_torch.jit_step import make_step
+    from ipc_tpu_torch.parallel.sharding import shard_state, shard_stepper
+    from ipc_tpu_torch.scenes import build_scene
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    st = shard_stepper(build_scene(2, torch.float64, "cpu", with_contact=True), 2)
+    step = make_step(st)
+    s = shard_state(state_from_numpy(_contact_lead(), "cpu", torch.float64), st.mesh)
+    rng = np.random.default_rng(6)
+    rows = []
+    for _ in range(2):
+        pre = state_to_numpy(s)
+        s, ref = step(s)
+        x_ref = s.x.numpy()
+        sens, flip = 0.0, 0
+        for _ in range(patterns):
+            pert = dict(pre, x=pre["x"] + rng.choice([-1.0, 1.0], size=pre["x"].shape)
+                        * np.spacing(np.abs(pre["x"])))
+            sp, rp = step(state_from_numpy(pert, "cpu", torch.float64))
+            sens = max(sens, float(np.abs(sp.x.numpy() - x_ref).max()))
+            flip = max(flip, abs(rp.pcg_iters_total - ref.pcg_iters_total))
+        rows.append(dict(pre=pre, x=x_ref, stats=dataclasses.asdict(ref), sens=sens,
+                         flip=flip))
+    return dict(rows=rows, seconds=time.perf_counter() - t0)
+
+
+def phase_sharded_reference(device, cpu_job):
+    """The n_cells=2 boxes' steps 8-9 in float64 on the card, from the
+    CPU's state before each step (module docstring, phase 19): on 2 gloo
+    ranks against the CPU's unsharded make_step over the same padded mesh,
+    and on a 1-rank NCCL group bitwise against the card's unsharded
+    make_step over that mesh; `cpu_job` is _sharded_cpu_case's result
+    (None: run it here)."""
+    import dataclasses
+    import types
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from ipc_tpu_torch.convert import state_from_numpy
+    from ipc_tpu_torch.jit_step import make_step
+    from ipc_tpu_torch.parallel.launch import launch
+    from ipc_tpu_torch.parallel.sharding import shard_state, shard_stepper
+    from ipc_tpu_torch.scenes import build_scene
+
+    cpu = cpu_job if cpu_job is not None else _sharded_cpu_case()
+    rows = cpu["rows"]
+    print(f"[sharded-ref] the CPU side: {cpu['seconds']:.1f} s in a worker process")
+    spec = dict(n_cells=2, dtype="float64", with_contact=True, pad=2,
+                starts=[r["pre"] for r in rows])
+    # both groups at once, each in a thread that waits on its ranks
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = {(r, b): pool.submit(launch, _sharded_job, r, b, None, (spec,), 300)
+                for r, b in ((2, "gloo"), (1, "nccl"))}
+        runs = {key: job.result() for key, job in jobs.items()}
+    print(f"[sharded-ref] the card side: {time.perf_counter() - t0:.1f} s for both groups")
+    st = shard_stepper(build_scene(2, torch.float64, device, with_contact=True), 2)
+    step = make_step(st)
+    for (ranks, backend), outs in runs.items():
+        check(all(o["backend"] == backend for o in outs), f"the {backend} backend ran")
+        for k, i in enumerate((8, 9)):
+            got = [o["rows"][k] for o in outs]
+            for r in got:
+                check(r["finite"] and r["ymin"] > 0.0 and not r["intersection"],
+                      "sharded reference: finite, above the ground, no intersection")
+            check(all(np.array_equal(r["x"], got[0]["x"]) for r in got),
+                  "sharded reference: the ranks' x bitwise equal")
+            tag = f"sharded-ref {backend} {ranks} rank(s) n_cells=2 float64 step {i}"
+            if ranks > 1:
+                ref = rows[k]
+                _judge(tag, types.SimpleNamespace(**got[0]["stats"]),
+                       types.SimpleNamespace(**ref["stats"]),
+                       float(np.abs(got[0]["x"] - ref["x"]).max()), ref["sens"], ref["flip"])
+                continue
+            pre = state_from_numpy(rows[k]["pre"], device, torch.float64)
+            s, stats = step(shard_state(pre, st.mesh))
+            same = np.array_equal(got[0]["x"], s.x.cpu().numpy())
+            same_stats = got[0]["stats"] == dataclasses.asdict(stats)
+            print(f"[{tag}]: newton/pcg={stats.newton_iters}/{stats.pcg_iters_total}; "
+                  f"against the card's unsharded step over the padded mesh: x bitwise "
+                  f"equal={same}, stats equal={same_stats}")
+            check(same and same_stats, f"{tag}: the 1-rank group is the unsharded step")
+
+
+def _card_phases_process(names, sharded_cpu):
+    """Process target: the named untimed phases on the card, in order;
+    `sharded_cpu` is _sharded_cpu_case's result for the sharded reference."""
     from ipc_tpu_torch.device import require_cuda
 
     device = require_cuda()
@@ -1447,28 +1712,32 @@ def _card_phases_process(names):
         t0 = time.perf_counter()
         if name == "diagnostic":
             phase_diagnostic()
+        elif name == "sharded_reference":
+            phase_sharded_reference(device, sharded_cpu)
         else:
             phase_qp_reference(device)
         print(f"[phase] {name} (child): {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def start_card_phases_process(names):
-    """Phases 16-17 in a child process on the same card, beside the other
-    references (None when neither is run)."""
+def start_card_phases_process(names, sharded_job=None):
+    """Phases 16, 17 and 19 in a child process on the same card, beside the
+    other references (None when none is run); `sharded_job`: the pool's
+    _sharded_cpu_case, waited for here."""
     import multiprocessing
 
     if not names:
         return None
+    sharded_cpu = sharded_job.get() if sharded_job is not None else None
     child = multiprocessing.get_context("spawn").Process(target=_card_phases_process,
-                                                         args=(names,))
+                                                         args=(names, sharded_cpu))
     child.start()
     return child
 
 
 def join_card_phases(child):
     child.join()
-    check(child.exitcode == 0, f"the QP reference and the diagnostic passed (exit code "
-          f"{child.exitcode})")
+    check(child.exitcode == 0, f"the QP reference, the diagnostic and the sharded reference "
+          f"passed (exit code {child.exitcode})")
 
 
 def main(argv=None):
@@ -1499,10 +1768,13 @@ def main(argv=None):
     run("build", phase_build, always=True)
     # the host reference's CPU side runs in two single-threaded worker
     # processes beside the card phases before it
-    pool = cpu_jobs = card_child = None
-    if only is None or "host_reference" in only:
+    pool = cpu_jobs = card_child = sharded_cpu = None
+    if only is None or {"host_reference", "sharded_reference"} & only:
         pool = multiprocessing.get_context("spawn").Pool(2)
+    if only is None or "host_reference" in only:
         cpu_jobs = start_host_reference(pool)
+    if only is None or "sharded_reference" in only:
+        sharded_cpu = pool.apply_async(_sharded_cpu_case)
     child = None
     try:
         # the timed phases first, alone on the card
@@ -1520,19 +1792,22 @@ def main(argv=None):
         launches += run("driver_path", phase_driver_path, device) or 0
         launches += run("host_path", phase_host_path, device) or 0
         launches += run("qp_path", phase_qp_path, device, qp_lead) or 0
+        launches += run("sharded_path", phase_sharded_path, device, qp_lead) or 0
         # then the references, which are not timed: the host reference, and
         # the QP reference with the diagnostic, in two child processes on
         # the same card beside the others
         child = start_host_reference_process(cpu_jobs)
         card_child = start_card_phases_process(
-            [n for n in ("qp_reference", "diagnostic") if only is None or n in only])
+            [n for n in ("qp_reference", "diagnostic", "sharded_reference")
+             if only is None or n in only], sharded_cpu)
         run("ground_reference", phase_ground_reference, device)
         contact_lead = run("contact_reference", phase_contact_reference, device)
         if contact_lead is None and (only is None or "variants_reference" in only):
             contact_lead = _contact_lead()
         run("variants_reference", phase_variants_reference, device, contact_lead)
         if card_child is not None:
-            run("qp_reference+diagnostic", join_card_phases, card_child, always=True)
+            run("qp_reference+diagnostic+sharded_reference", join_card_phases, card_child,
+                always=True)
         run("host_reference", join_host_reference, child)
     finally:
         for c in (child, card_child):

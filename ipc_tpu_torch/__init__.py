@@ -15,8 +15,11 @@ contact the self-contact barrier, ACCD and self-friction; PCG with the
 two-level coarse preconditioner. Beside it the host-path stepper
 (`timestepper.IPCStepper.step`, the JAX package's default) with its warm
 starts, homotopies, direct solves and mesh-sequence scripts; the scene
-driver (`python -m ipc_tpu_torch scene.txt`) runs either. Entry points
-run on the card unless the caller passes device="cpu".
+driver (`python -m ipc_tpu_torch scene.txt`) runs either; the QP/SQP
+comparison modes (qp/); the device step split over the ranks of a
+torch.distributed group (parallel/, `python -m ipc_tpu_torch.parallel`);
+the native C++ host runtime (native/). Entry points run on the card unless
+the caller passes device="cpu".
 
 Precision policy (the counterpart of `Precision.HIGHEST` throughout the JAX
 code): float32 matrix products run in full float32, never TF32. Every

@@ -79,5 +79,7 @@ def load_kernels():
             # H, v, tets, inc, n_tets, n_verts, D, rows (scratch), out, stream
             fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr]
             fn.restype = i32
+        lib.ipc_tet_hv_device_launches.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.ipc_tet_hv_device_launches.restype = i32
         _lib = lib
     return _lib

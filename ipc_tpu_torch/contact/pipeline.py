@@ -26,9 +26,21 @@ all-False mask: `build_candidates` and `has_intersection` take
 `dbc_free=True` for that, with the oversized primitives classified against
 the same mask.
 
-Not ported: the SPMD broad phase (multi-GPU), and the full-candidate
-`gradient/hessian_blocks/n_active/et_pairs` helpers (the active set gives
-the same values: the barrier and its derivatives vanish beyond dHat).
+Sharded (under parallel/spmd's active group; `rebind_mesh` points the
+pipeline at a padded mesh): each rank's candidate sets are its share of
+the pairs, disjoint across ranks, their union the unsharded set. The grid
+shards its queries (spatial_hash.fused_candidates with shard=); a scene with
+oversized primitives, like the dense path, computes the whole set on every
+rank and keeps the rank's contiguous 1/n of it (the JAX package takes its
+replicated broad phase there). The active set, the barrier terms and the
+friction capture then run over the rank's pairs, and the set sizes stay
+the rank's own (the step sums them for its stats). `ccd_alpha` takes the
+minimum over ranks, `intersects_pairs` and `has_intersection` an "any":
+every rank must call them.
+
+Not ported: the full-candidate `gradient/hessian_blocks/n_active/et_pairs`
+helpers (the active set gives the same values: the barrier and its
+derivatives vanish beyond dHat).
 """
 
 import math
@@ -47,6 +59,8 @@ from ipc_tpu_torch.ops.compensated import df_add, df_scale, df_sum
 from ipc_tpu_torch.ops.distance import edge_edge_dist2, eps_x_ee, point_triangle_dist2
 from ipc_tpu_torch.ops.scatter import make_dynamic_gather_sum
 from ipc_tpu_torch.ops.spd import make_psd
+from ipc_tpu_torch.parallel import spmd
+from ipc_tpu_torch.parallel.sharding import row_range
 
 __all__ = ["Candidates", "ActiveSet", "SelfContact", "compact"]
 
@@ -122,6 +136,17 @@ class SelfContact:
         self.host_syncs = 0
         self._free = None  # (all-False mask, its big classification), built on use
 
+    def rebind_mesh(self, mesh):
+        """Point the pipeline at a reshaped mesh (parallel.sharding's padded
+        one): the oversized primitives are classified again against its
+        rows, and `vert_mu` gets 0 on the padding vertices."""
+        if self.vert_mu is not None and self.vert_mu.shape[0] < mesh.x_rest.shape[0]:
+            pad = mesh.x_rest.shape[0] - self.vert_mu.shape[0]
+            self.vert_mu = torch.cat([self.vert_mu, self.vert_mu.new_zeros(pad)])
+        self.mesh = mesh
+        self.big = self._classify_big(mesh) if self.broadphase == "grid" else None
+        self._free = None
+
     def _classify_big(self, mesh, dbc=None):
         """Oversized primitives from the rest shape: extent above BIG_FACTOR x
         the median extent of the primitives that are not all-DBC (obstacle
@@ -180,18 +205,27 @@ class SelfContact:
             return None
         return disp - disp[self.mesh.surf_verts].mean(dim=0)
 
-    def build_candidates(self, x, disp=None, gap=0.0, with_et=True, dbc_free=False):
-        """One broad phase: PT and EE barrier/CCD stencils plus the swept
-        edge-triangle pairs of the intersection check, swept along `disp`
-        in the co-moving frame and inflated by `gap`. dbc_free: as if no
-        vertex were Dirichlet (module docstring)."""
+    @staticmethod
+    def _rank_share(pairs):
+        """The active group's rank's contiguous 1/n of a whole pair set."""
+        a, b = row_range(int(pairs.shape[0]), spmd.rank(), spmd.world())
+        return pairs[a:b], b - a
+
+    def candidate_pairs(self, x, disp=None, gap=0.0, with_et=True, dbc_free=False):
+        """One broad phase's surface-primitive pairs: ((pt (n,2), n), (ee,
+        n), (et, n)) of (vertex, triangle), (edge, edge) and (edge,
+        triangle) ids; under an active group the rank's share (module
+        docstring). Arguments as build_candidates'."""
         mesh = self.mesh
         dbc, big = self._mask_and_big(dbc_free)
         disp = self._comoving(disp)
+        sharded = spmd.active_group() is not None
         if self.broadphase == "grid":
+            shard = (spmd.rank(), spmd.world()) if sharded and big is None else None
             fused = SH.fused_candidates(x, mesh.surf_verts, mesh.surf_edges, mesh.surf_tris,
-                                        dbc, disp, gap, with_et=with_et, big=big)
-            (pt, pt_n), (ee, ee_n), (et, et_n) = fused["pt"], fused["ee"], fused["et"]
+                                        dbc, disp, gap, with_et=with_et, big=big, shard=shard)
+            sharded = sharded and shard is None  # else already the rank's share
+            out = [fused["pt"], fused["ee"], fused["et"]]
             self.host_syncs += fused["host_syncs"]
         else:
             pt, pt_n = BP.pt_candidates(x, mesh.surf_verts, mesh.surf_tris, dbc, disp, gap)
@@ -202,6 +236,19 @@ class SelfContact:
                 et = torch.zeros((0, 2), dtype=torch.int64, device=x.device)
                 et_n = 0
             self.host_syncs += 3 if with_et else 2
+            out = [(pt, pt_n), (ee, ee_n), (et, et_n)]
+        if sharded:
+            out = [self._rank_share(p) for p, _ in out]
+        return out
+
+    def build_candidates(self, x, disp=None, gap=0.0, with_et=True, dbc_free=False):
+        """One broad phase: PT and EE barrier/CCD stencils plus the swept
+        edge-triangle pairs of the intersection check, swept along `disp`
+        in the co-moving frame and inflated by `gap`. dbc_free: as if no
+        vertex were Dirichlet (module docstring)."""
+        mesh = self.mesh
+        (pt, pt_n), (ee, ee_n), (et, et_n) = self.candidate_pairs(x, disp, gap, with_et,
+                                                                  dbc_free)
         pt_vids = torch.cat([mesh.surf_verts[pt[:, 0]][:, None], mesh.surf_tris[pt[:, 1]]],
                             dim=1)
         ee_vids = torch.cat([mesh.surf_edges[ee[:, 0]], mesh.surf_edges[ee[:, 1]]], dim=1)
@@ -303,10 +350,10 @@ class SelfContact:
         step is the larger of the interval CCD's (minimum separation
         gap_frac * d0) and ACCD's."""
         a = torch.ones((), dtype=x.dtype, device=x.device)
-        for count, vids, accd, ti, dist2 in (
-                (cand.pt_count, cand.pt_vids, accd_pt, ti_pt, point_triangle_dist2),
-                (cand.ee_count, cand.ee_vids, accd_ee, ti_ee, edge_edge_dist2)):
-            if not count:
+        for vids, accd, ti, dist2 in (
+                (cand.pt_vids, accd_pt, ti_pt, point_triangle_dist2),
+                (cand.ee_vids, accd_ee, ti_ee, edge_edge_dist2)):
+            if not vids.shape[0]:
                 continue
             x4, p4 = x[vids], dx[vids]
             t = accd(x4, p4, gap_frac, max_iter)
@@ -315,23 +362,31 @@ class SelfContact:
                     dist2(x4[:, 0], x4[:, 1], x4[:, 2], x4[:, 3]), min=0.0))
                 t = torch.maximum(ti(x4, p4, 1.0, gap_frac * d0, max_iter), t)
             a = torch.minimum(a, t.amin())
-        return a
+        return spmd.all_min(a)
 
     def intersects_pairs(self, x, pairs):
-        """0-d bool: any of the (edge, tri) pairs properly intersects."""
-        return any_edge_tri_intersection(x, self.mesh.surf_edges, self.mesh.surf_tris, pairs)
+        """0-d bool: any of the (edge, tri) pairs properly intersects (on
+        any rank)."""
+        return spmd.all_any(any_edge_tri_intersection(x, self.mesh.surf_edges,
+                                                      self.mesh.surf_tris, pairs))
 
     def has_intersection(self, x, dbc_free=False):
         """(0-d bool, pair count): any surface edge through any surface
         triangle at x (a fresh unswept broad phase at gap 0); dbc_free as in
-        build_candidates."""
+        build_candidates. Under an active group the test covers every
+        rank's share and the count is this rank's."""
         mesh = self.mesh
         dbc, big = self._mask_and_big(dbc_free)
+        sharded = spmd.active_group() is not None
         if self.broadphase == "grid":
+            shard = (spmd.rank(), spmd.world()) if sharded and big is None else None
             pairs, n, syncs = SH.et_candidates(x, mesh.surf_edges, mesh.surf_tris,
-                                               dbc_mask=dbc, big=big)
+                                               dbc_mask=dbc, big=big, shard=shard)
+            sharded = sharded and shard is None
             self.host_syncs += syncs
         else:
             pairs, n = BP.et_candidates(x, mesh.surf_edges, mesh.surf_tris, dbc_mask=dbc)
             self.host_syncs += 1
+        if sharded:
+            pairs, n = self._rank_share(pairs)
         return self.intersects_pairs(x, pairs), n

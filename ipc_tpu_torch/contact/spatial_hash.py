@@ -45,12 +45,30 @@ small x small pairs: PT vertices x big triangles; EE all edges x big edges
 (a big-big pair once); ET all edges x big triangles, then small triangles
 x big edges.
 
-Not ported: the SPMD ring query (`fused_candidates_spmd`, multi-GPU).
+Sharded (`fused_candidates(..., shard=(rank, world))`, the counterpart of
+the JAX package's `fused_candidates_spmd`; `et_candidates` takes `shard=`
+too):
+every rank holds the whole replicated x, so it builds the geometry and both
+registries over ALL targets and expands only ITS contiguous share of the
+query rows (the PT query vertices, the EE and ET query edges: `q_range`).
+Its pairs are the full set's pairs whose query falls in its share, so the
+ranks' sets are disjoint and their union is `fused_candidates`' set, in
+rank order the same ascending order. The JAX package's ring instead
+builds each rank's registry over its target shard and passes the shards
+round with `ppermute`; that needs point-to-point transfers, which gloo
+does not take on CUDA tensors. The cost of this choice: the AABBs (6
+floats per primitive), the motion columns and the two registries (8 int64
+keys plus 8 int64 ids per target triangle and edge) are replicated on every
+rank, O(S + E) each, where the ring holds 1/n of them. Only the expansion,
+the largest transient (one row per query cell and target in its cell), and
+the emitted pairs shrink with n. At 96,000 tets (9,600 surface triangles,
+14,400 surface edges) the registries are 3.1 MB per rank.
 """
 
 import torch
 
 from ipc_tpu_torch.contact import broadphase as BP
+from ipc_tpu_torch.parallel.sharding import row_range
 
 __all__ = ["grid_geometry", "fused_candidates", "et_candidates"]
 
@@ -130,7 +148,8 @@ class _Family:
     """One query family against one registry: query cells, their target
     ranges and the per-pair filter."""
 
-    def __init__(self, qcells, reg, q_boxes, t_boxes, q_motion, t_motion, valid_fn, n_t):
+    def __init__(self, qcells, reg, q_boxes, t_boxes, q_motion, t_motion, valid_fn, n_t,
+                 q_range=None):
         self.qc, self.reg = qcells, reg
         self.q_boxes, self.t_boxes = q_boxes, t_boxes
         self.q_motion, self.t_motion = q_motion, t_motion
@@ -139,7 +158,12 @@ class _Family:
         qk = qcells.key.reshape(-1)
         self.lo = torch.searchsorted(reg.keys, qk, side="left")
         hi = torch.searchsorted(reg.keys, qk, side="right")
-        self.n = torch.where(qcells.ok.reshape(-1), hi - self.lo, torch.zeros_like(self.lo))
+        ok = qcells.ok
+        if q_range is not None:
+            # a rank's share of the queries: the other rows expand nothing
+            q = torch.arange(ok.shape[0], device=ok.device)[:, None]
+            ok = ok & (q >= q_range[0]) & (q < q_range[1])
+        self.n = torch.where(ok.reshape(-1), hi - self.lo, torch.zeros_like(self.lo))
 
     def keys(self, a, b, total, gap):
         """Sort keys q * n_t + t of the kept pairs among query cells [a, b)
@@ -321,13 +345,22 @@ def _et_dense(eb, em, tb, tm, surf_edges, surf_tris, dbc_mask, big, gap):
     return keys
 
 
+def _share(n_rows, shard):
+    """(start, stop) of the rows of shard = (rank, world), or None."""
+    return None if shard is None else row_range(n_rows, *shard)
+
+
 def fused_candidates(x, surf_verts, surf_edges, surf_tris, dbc_mask, disp=None, gap=0.0,
-                     with_et=True, big=None):
+                     with_et=True, big=None, shard=None):
     """One broad phase serving the three queries of a Newton iteration:
     one shared geometry, one triangle registry (PT and ET queries) and one
     edge registry (EE), plus the dense sweep of the `big` primitives.
     Returns dict(pt=(pairs, n), ee=(pairs, n), et=(pairs, n),
-    host_syncs=int); with_et=False gives an empty ET set."""
+    host_syncs=int); with_et=False gives an empty ET set. shard = (rank,
+    world) keeps the pairs of rank's share of the query rows (module
+    docstring; not with `big`)."""
+    if shard is not None and big:
+        raise ValueError("fused_candidates: a sharded query takes no big primitives")
     vb = BP.vert_aabbs(x, surf_verts, disp, gap)
     eb = BP.edge_aabbs(x, surf_edges, disp, gap)
     tb = BP.tri_aabbs(x, surf_tris, disp, gap)
@@ -342,13 +375,15 @@ def fused_candidates(x, surf_verts, surf_edges, surf_tris, dbc_mask, disp=None, 
     treg, ereg = _Registry(tc), _Registry(ec)
     nS, nE = int(surf_tris.shape[0]), int(surf_edges.shape[0])
     pt_valid = _pt_valid(surf_verts, surf_tris, dbc_mask)
+    vr = _share(int(surf_verts.shape[0]), shard)
+    er = _share(nE, shard)
     fams = [
-        _Family(vc, treg, vb, tb, vm, tm, pt_valid, nS),
-        _Family(ec, ereg, eb, eb, em, em, _ee_valid(surf_edges, dbc_mask), nE),
+        _Family(vc, treg, vb, tb, vm, tm, pt_valid, nS, vr),
+        _Family(ec, ereg, eb, eb, em, em, _ee_valid(surf_edges, dbc_mask), nE, er),
     ]
     if with_et:
         fams.append(_Family(ec, treg, eb, tb, em, tm,
-                            _et_valid(surf_edges, surf_tris, dbc_mask), nS))
+                            _et_valid(surf_edges, surf_tris, dbc_mask), nS, er))
     swept = None
     if big:
         swept = [[], []]
@@ -367,9 +402,13 @@ def fused_candidates(x, surf_verts, surf_edges, surf_tris, dbc_mask, disp=None, 
     return dict(pt=out[0], ee=out[1], et=out[2], host_syncs=syncs)
 
 
-def et_candidates(x, surf_edges, surf_tris, disp=None, gap=0.0, dbc_mask=None, big=None):
+def et_candidates(x, surf_edges, surf_tris, disp=None, gap=0.0, dbc_mask=None, big=None,
+                  shard=None):
     """Edge-triangle pairs alone (with the dense sweep of the `big`
-    primitives): ((n,2) int64, n, host_syncs)."""
+    primitives): ((n,2) int64, n, host_syncs). shard = (rank, world): the
+    pairs of rank's share of the edges (not with `big`)."""
+    if shard is not None and big:
+        raise ValueError("et_candidates: a sharded query takes no big primitives")
     eb = BP.edge_aabbs(x, surf_edges, disp, gap)
     tb = BP.tri_aabbs(x, surf_tris, disp, gap)
     em = BP.prim_motion(x, surf_edges, disp)
@@ -378,7 +417,8 @@ def et_candidates(x, surf_edges, surf_tris, disp=None, gap=0.0, dbc_mask=None, b
     origin, cell = grid_geometry(eb, tb, excludes=(be_mask, bt_mask))
     ec, tc = _Cells(eb, origin, cell, be_mask), _Cells(tb, origin, cell, bt_mask)
     fam = _Family(ec, _Registry(tc), eb, tb, em, tm,
-                  _et_valid(surf_edges, surf_tris, dbc_mask), int(surf_tris.shape[0]))
+                  _et_valid(surf_edges, surf_tris, dbc_mask), int(surf_tris.shape[0]),
+                  _share(int(surf_edges.shape[0]), shard))
     swept = [_et_dense(eb, em, tb, tm, surf_edges, surf_tris, dbc_mask, big, gap)] if big \
         else None
     (res,), syncs = _run([fam], gap, [ec.top, tc.top], swept)

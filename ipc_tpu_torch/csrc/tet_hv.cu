@@ -54,11 +54,18 @@
 // entry launches both passes on the caller's stream, allocates nothing (the
 // caller passes the rows scratch and the output), and returns
 // cudaGetLastError() right after the launches.
+//
+// The card's own launch count: thread 0 of pass A's block 0 adds one to a
+// device counter per grid that runs, CUDA graph replays included (one
+// atomic per call). ipc_tet_hv_device_launches reads it, so the wrapper's
+// host-side count can be held against what the card ran.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+__device__ unsigned long long g_tet_rows_launches = 0;  // pass A grids run
 
 constexpr int kSumThreads = 256;   // pass B block
 constexpr int kSumChunk = 32;      // pass B indices held in registers
@@ -152,6 +159,7 @@ tet_rows_kernel(const T* __restrict__ H,            // (T,12,12)
   };
 
   if (tid == 0) {
+    if (blockIdx.x == 0) atomicAdd(&g_tet_rows_launches, 1ull);
     for (int s = 0; s < S; ++s) bar_init(&bars[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     for (int k = 0; k < S && k < my_tiles; ++k) issue(k);
@@ -302,4 +310,9 @@ extern "C" int ipc_tet_hv_f64(const void* H, const void* v, const void* tets, co
                               int n_tets, int n_verts, int D, void* rows, void* out,
                               void* stream) {
   return launch<double>(H, v, tets, inc, n_tets, n_verts, D, rows, out, stream);
+}
+
+// The pass A grids run on the current device since the library was loaded.
+extern "C" int ipc_tet_hv_device_launches(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_tet_rows_launches, sizeof(*out));
 }

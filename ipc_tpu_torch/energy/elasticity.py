@@ -7,8 +7,13 @@ tets instead of vmap. Same algebra:
      9x9 matrix of the SPD-projected 3x3 sigma Hessian and 2x2 twist blocks
   grad_x = vol * W @ P^T,  hess_x = vol * einsum(W, W, dP/dF)  (12x12/tet)
 
-The zero-volume guards (`where(vol > 0, ...)`) are kept although slice 1
-has no padded tets.
+The zero-volume guards (`where(vol > 0, ...)`) give the padding tets of a
+sharded mesh (parallel/sharding.py: all four corners on the sentinel
+vertex, rest_inv, vol, mu and lam 0) exact zeros of energy, gradient and
+Hessian. A rank of a sharded step passes a mesh that holds only its own
+tets (over all vertices): these functions then return its part, which the
+step sums over ranks (step_terms.py), and `filter_step_size` its least
+step, which the step takes the minimum of.
 """
 
 import torch

@@ -5,10 +5,13 @@ plain version and a library yardstick.
 
 prints one JSON object per (scene, n, dtype): the two-box scene's
 topology at n_cells 8 and 20 (6,144 and 96,000 tets), the mat-twist
-scene's at n = 100 (60,000 tets, 20,402 vertices) and the driver scene's
+scene's at n = 100 (60,000 tets, 20,402 vertices), the driver scene's
 (the boxes at n_cells 20 over a meshCO plate: its 4 tet-less vertices
-have degree 0, so their table rows are all padding), with seeded random
-SPD-like H blocks and v rows (a fifth of them zeroed, as DBC rows are):
+have degree 0, so their table rows are all padding) and the shard shape
+of a 2-rank sharded step (parallel/sharding.py: rank 0's 48,000 tets of
+the boxes at n_cells 20 over all 18,524 vertices of the padded mesh, half
+of which no tet of the rank touches), with seeded random SPD-like H
+blocks and v rows (a fifth of them zeroed, as DBC rows are):
 
   max_abs_err, limit  kernel vs plain version, and the tolerance (1e-5 in
                       f32, 1e-12 in f64, times the plain result's max |.|)
@@ -30,8 +33,10 @@ SPD-like H blocks and v rows (a fifth of them zeroed, as DBC rows are):
                       bound over kernel time
   empty_ms            the same timing of a call that launches nothing: the
                       floor of the method
-  tetless_zero        the driver scene only: the tet-less vertices' rows of
-                      the kernel's result are exact zeros (else null)
+  tetless_zero        the rows of the vertices no tet touches (the driver
+                      scene's plate, the shard's other half and padding)
+                      are exact zeros in the kernel's result (null where
+                      every vertex has a tet)
   split_us            mean device microseconds per call of each kernel the
                       call launches (torch.profiler, L2 flushed between
                       calls); a kernel that waits on another (a programmatic
@@ -103,34 +108,42 @@ def kernel_split_us(fn, flush):
     return out
 
 
-def device_launches(fn, name):
-    """(fn(), the device launches of kernels whose name holds `name` while
-    fn ran), from a torch.profiler trace of the call: the card's own record,
-    CUDA graph replays included, to hold a wrapper's launch count against."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key)
-    return out, n
+def device_launches(fn, device):
+    """(fn(), the tet_hv calls that ran on the card `device` while fn ran),
+    read from the kernel's own device counter (ops/tet_hv.device_launches):
+    the card's record, CUDA graph replays included, to hold the wrapper's
+    launch count against."""
+    from ipc_tpu_torch.ops import tet_hv as TH
+
+    n0 = TH.device_launches(device)
+    out = fn()
+    return out, TH.device_launches(device) - n0
 
 
-SCENES = (("boxes", 8), ("boxes", 20), ("twist", 100), ("driver", 20))
+SCENES = (("boxes", 8), ("boxes", 20), ("twist", 100), ("driver", 20), ("shard", 20))
+SHARD_RANKS = 2
 DRIVER_TETLESS = 4  # the driver scene's plate: two triangles, four vertices
 
 
 def hv_problem(n_cells, scene="boxes"):
     """Numpy inputs at a scene's topology (the two-box scene at n_cells,
-    the mat-twist scene at n = n_cells, or the driver scene: the boxes plus
-    DRIVER_TETLESS tet-less vertices), seeded by n_cells: tets (T,4),
-    n_verts, H (T,12,12) SPD-like, v (V,3) with a fifth of its rows
-    zeroed."""
+    the mat-twist scene at n = n_cells, the driver scene: the boxes plus
+    DRIVER_TETLESS tet-less vertices, or the shard: rank 0's tets of the
+    boxes padded for SHARD_RANKS ranks over the padded vertices), seeded
+    by n_cells: tets (T,4), n_verts, H (T,12,12) SPD-like, v (V,3) with a
+    fifth of its rows zeroed."""
     from ipc_tpu_torch import scenes
 
     build = scenes.build_twist_scene if scene == "twist" else scenes.build_scene
     st = build(n_cells, torch.float64, "cpu")
     tets = st.mesh.tets.numpy()
     n_verts = int(st.mesh.x_rest.shape[0]) + (DRIVER_TETLESS if scene == "driver" else 0)
+    if scene == "shard":
+        from ipc_tpu_torch.parallel.sharding import shard_mesh_data
+
+        padded, rows = shard_mesh_data(st.mesh, SHARD_RANKS, 0)
+        tets = padded.tets.numpy()[slice(*rows["tets"])]
+        n_verts = int(padded.x_rest.shape[0])
     rng = np.random.default_rng(n_cells)
     M = rng.normal(size=(tets.shape[0], 12, 12))
     H = M @ np.swapaxes(M, 1, 2) / 12.0
@@ -176,8 +189,10 @@ def measure(n_cells, dtype, device, scene="boxes"):
     torch.cuda.synchronize()
     err = (out - plain).abs().max().item()
     scale = plain.abs().max().item()
-    tetless_zero = (bool((out[n_verts - DRIVER_TETLESS:] == 0).all()) if scene == "driver"
-                    else None)
+    untouched = np.ones(n_verts, bool)
+    untouched[tets_np.reshape(-1)] = False
+    tetless_zero = (bool((out[torch.as_tensor(untouched, device=device)] == 0).all())
+                    if untouched.any() else None)
 
     flush_buf = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
 

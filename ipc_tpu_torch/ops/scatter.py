@@ -16,8 +16,12 @@ segment: the order of the updates JAX's `.at[ids].add` receives.
 
 On CUDA this is the port's deterministic vertex accumulation: no float
 atomics (`index_add_` with colliding indices sums in a run-dependent order),
-so a step is bitwise repeatable. The SPMD branch of the JAX version is not
-ported (multi-GPU is the last slice).
+so a step is bitwise repeatable. A sharded step (parallel/) keeps this:
+each rank gathers over the tables of its own tets and pairs into all V
+rows, and the ranks' partials are added in rank order (parallel/spmd.py).
+The JAX version's SPMD branch, a scatter-add under a mesh
+(`scatter.py:53-65`), is not ported: it relies on the partitioner and on
+float atomics, which the port does not use.
 """
 
 import numpy as np

@@ -13,10 +13,19 @@ kernel runs in two device launches: pass A writes the per-corner rows
 H_t . v4_t to a (4T,3) scratch (row 4t + c, the layout of the plain
 version's `hv.reshape(-1, 3)`), pass B sums each vertex's rows in the
 table's order. One call is one operator application, so `launches` counts
-calls, not device launches. For CPU tensors, and only there, it computes
+calls, not device launches; `device_launches(device)` reads the card's own
+count of the calls that ran (pass A counts its grids on the device), to
+hold `launches` against. For CPU tensors, and only there, it computes
 the same sum with `tet_hv_reference`, the plain PyTorch version (the JAX
 package's jnp route: gather, einsum, gather-sum). A CUDA tensor never
 reaches the plain version: the kernel launches or the call raises.
+
+A rank of a sharded step (parallel/) builds its table from its own tets
+over all V vertices of the padded mesh: a vertex none of its tets touches
+has a row of padding only, and pass B writes it an exact zero (as for the
+tet-less vertices of a kinematic obstacle). The kernel needed no change;
+pass B still walks all V rows on every rank, the part of a call that does
+not shrink with the number of ranks.
 """
 
 from dataclasses import dataclass
@@ -27,7 +36,8 @@ import torch
 from ipc_tpu_torch.ops.launch_counts import count_launch, register
 from ipc_tpu_torch.ops.scatter import gather_table, make_gather_sum
 
-__all__ = ["TetHvTable", "make_tet_hv_table", "tet_hv", "tet_hv_reference", "tet_rows_reference"]
+__all__ = ["TetHvTable", "make_tet_hv_table", "tet_hv", "tet_hv_reference", "tet_rows_reference",
+           "device_launches"]
 
 # The kernel's bulk copies move H and tets in 16-byte units.
 _ALIGN = 16
@@ -134,3 +144,21 @@ def tet_hv(H, v, table):
 
 
 register(tet_hv)
+
+
+def device_launches(device):
+    """The kernel's calls that ran on the card `device` since its library
+    was loaded, as the card counts them (block 0 of pass A adds one per
+    grid: CUDA graph replays included), after the queued work has run."""
+    import ctypes
+
+    from ipc_tpu_torch.build import load_kernels
+
+    lib = load_kernels()
+    n = ctypes.c_ulonglong(0)
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        err = lib.ipc_tet_hv_device_launches(ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"tet_hv: reading the device launch count failed with error {err}")
+    return int(n.value)

@@ -43,6 +43,7 @@ from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
 from ipc_tpu_torch.energy import elasticity as EL
 from ipc_tpu_torch.ops.scatter import make_dynamic_gather_sum
 from ipc_tpu_torch.ops.tet_hv import make_tet_hv_table, tet_hv
+from ipc_tpu_torch.parallel import spmd
 from ipc_tpu_torch.qp.admm import admm_qp
 from ipc_tpu_torch.qp.constraints import FAMILY_OF_TYPE, constraint_c_grad
 from ipc_tpu_torch.solver.pcg import apply_block_precond, block_jacobi_inverse
@@ -211,7 +212,9 @@ class QPStepper(IPCStepper):
 
     def step(self, state: SimState, verbose=False):
         """Advance one time step by the QP/SQP iteration (module docstring);
-        returns (SimState, StepStats)."""
+        returns (SimState, StepStats). Not under an active process group."""
+        if spmd.active_group() is not None:
+            raise NotImplementedError("QPStepper.step does not run sharded")
         mesh = self.mesh
         syncs0 = self._other_syncs()
         stats = StepStats()

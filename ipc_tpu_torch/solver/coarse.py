@@ -19,6 +19,14 @@ families (k = 4: self-contact barrier and friction), whose (C*C) cells
 change with every active set and get a table built on the device
 (`make_dynamic_gather_sum`; its host reads add to `assemble.host_syncs`).
 
+Under an active process group (parallel/spmd.py) each rank adds its tets'
+and pairs' cells, the owner rank the mass and the per-vertex families too,
+and one sum over ranks of the (C,C,3,3) cells precedes the symmetrization
+and the inverse (JAX `coarse.py:107-123`: a per-device partial, then a
+psum), so every rank inverts the same matrix. The aggregates come from the
+padded mesh's rest positions, whose sentinel vertex stretches the Morton
+grid: they are not the unpadded mesh's (as in the JAX package).
+
 Not ported yet: the `scalar_contribs` trace path, which no caller of the
 production step reaches.
 """
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from ipc_tpu_torch.ops.scatter import make_dynamic_gather_sum, make_gather_sum
+from ipc_tpu_torch.parallel import spmd
 
 __all__ = ["build_aggregates", "make_coarse_assembler"]
 
@@ -136,17 +145,21 @@ def make_coarse_assembler(agg, C, dbc_mask, dtype, tets=None):
 
     def assemble(mass, contributions, tet_H=None):
         A = torch.zeros((C * C, 3, 3), dtype=dtype, device=device)
-        # lumped mass on the diagonal (free vertices only)
-        m_c = gsum_agg(mass * free)
-        A[diag_cells] = A[diag_cells] + m_c[:, None, None] * eye3[None]
+        owner = spmd.owner()  # the replicated families are added once
+        if owner:
+            # lumped mass on the diagonal (free vertices only)
+            m_c = gsum_agg(mass * free)
+            A[diag_cells] = A[diag_cells] + m_c[:, None, None] * eye3[None]
         for vids, H in contributions:
             if vids.shape[1] == 1:
-                A[diag_cells] = A[diag_cells] + vertex_family(vids, H)
+                if owner:
+                    A[diag_cells] = A[diag_cells] + vertex_family(vids, H)
             elif vids.shape[0]:
                 A = A + pair_family(vids, H)
         A = A.reshape(C, C, 3, 3)
         if tet_coarse is not None and tet_H is not None:
             A = A + tet_coarse(tet_H)
+        A = spmd.all_sum(A)
         Ad = A.permute(0, 2, 1, 3).reshape(3 * C, 3 * C)
         # symmetrize + tiny trace-scaled regularization (keeps empty/all-DBC
         # aggregates invertible)

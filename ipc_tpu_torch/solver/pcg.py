@@ -12,6 +12,12 @@ a CUDA graph and replayed (`CapturedBody`): the same kernels in the same
 order on the same values, so the same iterates bit for bit, at one graph
 launch per iteration instead of the ~50 eager launches of the body. On
 other devices the same code runs eagerly.
+
+A sharded step (parallel/) runs `pcg` unchanged on replicated vectors: its
+operator carries the one sum over ranks (step_terms), the preconditioner
+is replicated, and the dots are local sums of replicated vectors, so every
+rank reads the same bits in its `rr > atol2` test and takes the same
+number of iterations; no collective sits in the loop itself.
 """
 
 import torch

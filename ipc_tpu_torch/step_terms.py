@@ -29,6 +29,20 @@ Its moving-DBC episode frees every Dirichlet vertex: it builds a second set
 with an all-False mask (`dbc=`), the counterpart of the JAX package's
 `_swap_dbc_mask`, which rebinds every kernel to such a mask.
 
+Under an active process group (parallel/spmd.py; the stepper's mesh holds
+the rank's tets, parallel/sharding.shard_stepper) each function returns
+the value summed over ranks: the rank evaluates its tets and pairs, the
+owner rank (0) adds the replicated terms once (mass, the moving-DBC pull,
+external forces, half-space barrier and friction), in the order of the
+unsharded sum, and one collective adds the ranks' partials: a (V,3) sum
+per gradient and per operator application, a (V,3,3) sum for the block-
+Jacobi diagonal, a (C,C,3,3) sum for the coarse matrix (in
+solver/coarse.py), the energy's (hi, lo) pairs or float64 totals in rank
+order, and the least inversion-safe step. The DBC masks apply after the
+sum. PCG's vectors and dots are replicated. With no active group the
+collectives are identities and every function computes what it did
+before, in the same order.
+
 Functions take the barrier's `dHat` as an argument (the host path's dHat
 homotopy changes it between sub-solves). `counters` counts operator
 applications (each runs tet_hv once) and the values read back to the host
@@ -41,6 +55,7 @@ import torch
 
 from ipc_tpu_torch.energy import elasticity as EL
 from ipc_tpu_torch.ops.tet_hv import make_tet_hv_table, tet_hv
+from ipc_tpu_torch.parallel import spmd
 from ipc_tpu_torch.solver.coarse import build_aggregates, make_coarse_assembler
 from ipc_tpu_torch.solver.pcg import apply_block_precond, block_jacobi_inverse, pcg
 
@@ -85,8 +100,11 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
         )
     # the coarse assembly runs once per step (device step) or sub-solve
     # (host path) at scale, once per Newton iteration below it (as in the
-    # JAX package)
-    lag_coarse = int(mesh.tets.shape[0]) >= 32768
+    # JAX package); a rank decides on the whole padded mesh's tets
+    shard = getattr(stepper, "shard", None)
+    lag_coarse = (int(mesh.tets.shape[0]) if shard is None else shard.n_tets) >= 32768
+    # the rank that adds the replicated terms (every rank without a group)
+    owner = spmd.owner()
     linsys = p.linsys if host else "pcg"
     counters = dict(operator=0, syncs=0) if counters is None else counters
 
@@ -115,6 +133,7 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
         e_add_t = df_add
         e_leq = df_leq
         e_out = df_to_float
+        e_reduce = spmd.df_all_sum
 
         def e_float(E):
             """Host float64 of a (hi, lo) pair (one host read)."""
@@ -133,6 +152,8 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
 
         def e_add_t(E, t):
             return E + t
+
+        e_reduce = spmd.all_sum
 
         def e_leq(a, b):
             return a <= b
@@ -157,26 +178,29 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
     def energy(x, x_tilde, kappa, dHat, fric, damp=None, fext=None, act=None, hsD=None,
                alw=None):
         E = e_add_v(e_zero(), w_el * EL.elasticity_energy_per_elem(x, mesh, p.model))
-        dxv = x - x_tilde
-        E = e_add_v(E, 0.5 * mesh.mass[:, None] * dxv * dxv)
-        if alw is not None:
-            # moving-DBC AL: -sqrt(m) lam.(x-t) + rho/2 m|x-t|^2
-            dxt = x[alw["verts"]] - alw["target"]
-            E = e_add_s(E, -(alw["sqrtm"][:, None] * alw["lam"] * dxt).sum())
-            E = e_add_s(E, 0.5 * alw["w"] * (alw["m"][:, None] * dxt * dxt).sum())
-        if fext is not None:
-            # NBC work on free vertices
-            E = e_add_s(E, -w_el * masked(dbc[:, None], mesh.mass[:, None] * fext * x).sum())
-        x_sv = x[sv]
-        for i, hs in enumerate(halfspaces):
-            E = e_add_s(E, hs.energy(x_sv, kappa, dHat, D=hsd(hsD, i)))
+        if owner:
+            dxv = x - x_tilde
+            E = e_add_v(E, 0.5 * mesh.mass[:, None] * dxv * dxv)
+            if alw is not None:
+                # moving-DBC AL: -sqrt(m) lam.(x-t) + rho/2 m|x-t|^2
+                dxt = x[alw["verts"]] - alw["target"]
+                E = e_add_s(E, -(alw["sqrtm"][:, None] * alw["lam"] * dxt).sum())
+                E = e_add_s(E, 0.5 * alw["w"] * (alw["m"][:, None] * dxt * dxt).sum())
+            if fext is not None:
+                # NBC work on free vertices
+                E = e_add_s(E, -w_el * masked(dbc[:, None],
+                                              mesh.mass[:, None] * fext * x).sum())
+            x_sv = x[sv]
+            for i, hs in enumerate(halfspaces):
+                E = e_add_s(E, hs.energy(x_sv, kappa, dHat, D=hsd(hsD, i)))
         if act is not None:
             E = e_add_t(E, sc.energy_active(x, act, kappa, dHat, df=use_df))
+        # half-space friction on the owner only (the stepper's _hs_friction)
         E = e_add_s(E, stepper._friction_energy(x, fric))
         if damp is not None:
             v4, Av = damping_Av(x, damp)
             E = e_add_v(E, 0.5 * v4 * Av)
-        return E
+        return e_reduce(E)
 
     def contact_grad(x, kappa, dHat, hsD=None):
         """(V,3) half-space barrier gradient (surface rows only)."""
@@ -187,34 +211,39 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
         # sv is unique: one addend per row, deterministic on CUDA too
         return torch.zeros_like(x).index_add(0, sv, g_sv)
 
-    def grad_no_contact(x, x_tilde):
+    def grad_no_contact_part(x, x_tilde):
+        """This rank's part of grad_no_contact (the whole without a group)."""
         g = w_el * EL.elasticity_gradient(x, mesh, p.model, vert_sum=gsum_tet)
-        return g + mesh.mass[:, None] * (x - x_tilde)
+        return g + mesh.mass[:, None] * (x - x_tilde) if owner else g
+
+    def grad_no_contact(x, x_tilde):
+        return spmd.all_sum(grad_no_contact_part(x, x_tilde))
 
     def grad_contact_unit(x, dHat, cand, hsD=None):
         """(V,3) barrier gradient at kappa 1: half-spaces, and the pairs of
         `cand` inside dHat."""
-        g = contact_grad(x, 1.0, dHat, hsD)
+        g = contact_grad(x, 1.0, dHat, hsD) if owner else torch.zeros_like(x)
         if sc is not None:
             g = g + sc.gradient_active(x, sc.active_set(x, cand, dHat), 1.0, dHat)
-        return g
+        return spmd.all_sum(g)
 
     def gradient(x, x_tilde, kappa, dHat, fric, damp, fext, act, hsD, alw, dbc_t):
-        g = grad_no_contact(x, x_tilde)
-        if alw is not None:
-            dxt = x[alw["verts"]] - alw["target"]
-            # the AL's vertices are unique
-            g = g.index_add(0, alw["verts"], -alw["sqrtm"][:, None] * alw["lam"]
-                            + alw["w"] * alw["m"][:, None] * dxt)
-        if fext is not None:
-            g = g - w_el * mesh.mass[:, None] * fext
-        g = g + contact_grad(x, kappa, dHat, hsD)
+        g = grad_no_contact_part(x, x_tilde)
+        if owner:
+            if alw is not None:
+                dxt = x[alw["verts"]] - alw["target"]
+                # the AL's vertices are unique
+                g = g.index_add(0, alw["verts"], -alw["sqrtm"][:, None] * alw["lam"]
+                                + alw["w"] * alw["m"][:, None] * dxt)
+            if fext is not None:
+                g = g - w_el * mesh.mass[:, None] * fext
+            g = g + contact_grad(x, kappa, dHat, hsD)
         if act is not None:
             g = g + sc.gradient_active(x, act, kappa, dHat)
         g = g + stepper._friction_gradient(x, fric)
         if damp is not None:
             g = g + gsum_tet(damping_Av(x, damp)[1].reshape(-1, 3))
-        return masked(dbc_t[:, None], g)
+        return masked(dbc_t[:, None], spmd.all_sum(g))
 
     def hs_blocks(x, kappa, dHat, hsD=None):
         x_sv = x[sv]
@@ -301,14 +330,11 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
 
         return dense_solve(assemble_dense(n_verts, mesh.mass, contribs, dbc_t), rhs)
 
-    def search_dir(x, x_tilde, kappa, dHat, cand, fric, dx0, Ainv_c, damp, fext, hsD, alw,
-                   dbc_t):
-        """(dx, g, PCG iterations, (active PT, active EE)) at x from the
-        candidates `cand`; PCG starts from dx0 (None: zeros)."""
-        # ONE candidate->active compaction per Newton iteration feeds the
-        # barrier gradient AND the 12x12 block construction
-        act = sc.active_set(x, cand, dHat) if sc is not None else None
-        g = gradient(x, x_tilde, kappa, dHat, fric, damp, fext, act, hsD, alw, dbc_t)
+    def newton_system(x, kappa, dHat, act, fric, damp, hsD, alw, dbc_t):
+        """The projected Newton matrix at x over the active set `act`:
+        (operator v -> A v, block-Jacobi inverse (V,3,3), the elasticity
+        blocks, the half-space blocks, the barrier pair families, the
+        friction block families, (active PT, active EE))."""
         # the JAX host path's Newton matrix has no damping blocks
         Hel = tet_blocks(x, None if host else damp)
         Hsv = hs_blocks(x, kappa, dHat, hsD)
@@ -322,11 +348,14 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
         def operator(v):
             counters["operator"] += 1
             v = masked(dbc_t[:, None], v)
-            out = mesh.mass[:, None] * v
-            if al_w is not None:
-                out = out.index_add(0, alw["verts"], al_w * v[alw["verts"]])
-            out = out + tet_hv(Hel, v, hv_table)
-            out = out.index_add(0, sv, torch.einsum("vij,vj->vi", Hsv, v[sv]))
+            if owner:
+                out = mesh.mass[:, None] * v
+                if al_w is not None:
+                    out = out.index_add(0, alw["verts"], al_w * v[alw["verts"]])
+                out = out + tet_hv(Hel, v, hv_table)
+                out = out.index_add(0, sv, torch.einsum("vij,vj->vi", Hsv, v[sv]))
+            else:
+                out = tet_hv(Hel, v, hv_table)
             for fam in barrier_fams:
                 out = out + pair_hv(fam, v)
             # ids are unique within a vertex family: deterministic index_add
@@ -334,21 +363,37 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
                 out = out.index_add(0, ids, torch.einsum("vij,vj->vi", Hf, v[ids]))
             for fam in fric_pair:
                 out = out + pair_hv(fam, v)
-            return masked(dbc_t[:, None], out)  # projected rows: v is 0 there too
+            # projected rows: v is 0 there too
+            return masked(dbc_t[:, None], spmd.all_sum(out))
 
-        diag = mesh.mass[:, None, None] * eye3[None]
-        if al_w is not None:
-            diag = diag.index_add(0, alw["verts"], al_w[:, :, None] * eye3[None])
-        diag = diag + gsum_tet(diag_blocks12(Hel).reshape(-1, 3, 3))
-        diag = diag.index_add(0, sv, Hsv)
+        if owner:
+            diag = mesh.mass[:, None, None] * eye3[None]
+            if al_w is not None:
+                diag = diag.index_add(0, alw["verts"], al_w[:, :, None] * eye3[None])
+            diag = diag + gsum_tet(diag_blocks12(Hel).reshape(-1, 3, 3))
+            diag = diag.index_add(0, sv, Hsv)
+        else:
+            diag = gsum_tet(diag_blocks12(Hel).reshape(-1, 3, 3))
         for fam in barrier_fams:
             diag = diag + pair_diag(fam)
         for ids, Hf in fric_vert:
             diag = diag.index_add(0, ids, Hf)
         for fam in fric_pair:
             diag = diag + pair_diag(fam)
-        diag = torch.where(dbc_t[:, None, None], eye3[None], diag)
+        diag = torch.where(dbc_t[:, None, None], eye3[None], spmd.all_sum(diag))
         inv_diag = block_jacobi_inverse(diag)
+        return operator, inv_diag, Hel, Hsv, barrier_fams, fric_blocks, active_count
+
+    def search_dir(x, x_tilde, kappa, dHat, cand, fric, dx0, Ainv_c, damp, fext, hsD, alw,
+                   dbc_t):
+        """(dx, g, PCG iterations, (active PT, active EE)) at x from the
+        candidates `cand`; PCG starts from dx0 (None: zeros)."""
+        # ONE candidate->active compaction per Newton iteration feeds the
+        # barrier gradient AND the 12x12 block construction
+        act = sc.active_set(x, cand, dHat) if sc is not None else None
+        g = gradient(x, x_tilde, kappa, dHat, fric, damp, fext, act, hsD, alw, dbc_t)
+        (operator, inv_diag, Hel, Hsv, barrier_fams, fric_blocks,
+         active_count) = newton_system(x, kappa, dHat, act, fric, damp, hsD, alw, dbc_t)
 
         if linsys != "pcg":
             dx = direct_solve(-g, Hel, Hsv, barrier_fams, fric_blocks, alw, dbc_t)
@@ -392,7 +437,7 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
     def feasible_alpha_local(x, dx, hsD=None, dbc_sv_t=dbc_sv):
         """Inversion cubic + analytic half-space bound (0-d tensor)."""
         alpha = torch.ones((), dtype=dtype, device=device)
-        alpha = torch.minimum(alpha, EL.filter_step_size(x, dx, mesh, p.model))
+        alpha = torch.minimum(alpha, spmd.all_min(EL.filter_step_size(x, dx, mesh, p.model)))
         x_sv = x[sv]
         p_sv = dx[sv]
         for i, hs in enumerate(halfspaces):
@@ -438,7 +483,7 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
         lag_coarse=lag_coarse, counters=counters, dbc=dbc, dbc_sv=dbc_sv,
         e_leq=e_leq, e_out=e_out, e_float=e_float, energy=energy, gradient=gradient,
         grad_no_contact=grad_no_contact, grad_contact_unit=grad_contact_unit,
-        search_dir=search_dir, jacobi_dir=jacobi_dir,
+        search_dir=search_dir, newton_system=newton_system, jacobi_dir=jacobi_dir,
         assemble_coarse=assemble_coarse, feasible_alpha_local=feasible_alpha_local,
         span_clamp=span_clamp, capture_friction=capture_friction,
         damping_blocks=damping_blocks,

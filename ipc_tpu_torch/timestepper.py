@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from ipc_tpu_torch.contact import selfcollision as SC
+from ipc_tpu_torch.parallel import spmd
 
 __all__ = ["SimParams", "SimState", "IPCStepper", "StepStats"]
 
@@ -217,6 +218,8 @@ class IPCStepper:
         # the moving-DBC episode
         self._terms = {}
         self._counters = dict(operator=0, syncs=0)
+        # one rank's part of a sharded run (parallel.sharding.shard_stepper)
+        self.shard = None
 
     @property
     def operator_applications(self):
@@ -377,6 +380,11 @@ class IPCStepper:
     # ------------------------------------------------------------------
 
     def _hs_friction(self, fric):
+        """(half-space, multipliers, veldt) of each frictional plane; none
+        on a rank other than the owner of a sharded step (parallel/spmd.py:
+        the owner adds the replicated terms)."""
+        if not spmd.owner():
+            return []
         veldts = fric.get("hs_veldt") or [None] * len(self.halfspaces)
         return [
             (hs, st, vdt) for hs, st, vdt in zip(self.halfspaces, fric["hs"], veldts)
@@ -484,7 +492,11 @@ class IPCStepper:
 
     def step(self, state: SimState, verbose=False):
         """Advance one time step (reference Optimizer::solve +
-        fullyImplicit_IP); returns (SimState, StepStats)."""
+        fullyImplicit_IP); returns (SimState, StepStats). Not under an
+        active process group: the JAX package never shards the host path."""
+        if spmd.active_group() is not None:
+            raise NotImplementedError("IPCStepper.step does not run sharded; use "
+                                      "jit_step.make_step under a process group")
         p = self.p
         T = self._terms_for()
         syncs0 = self._other_syncs()

@@ -94,7 +94,7 @@ def test_graph_replays_count_the_device_launches(cuda_device):
     st = _drop(cuda_device, torch.float32)
     s, _ = st.step(st.initial_state())
     n0, ops0 = tet_hv.launches, st.operator_applications
-    (_, stats), n = device_launches(lambda: st.step(s), "tet_rows_kernel")
+    (_, stats), n = device_launches(lambda: st.step(s), cuda_device)
     assert 200 in stats.pcg_iters  # ADMM ran its graphs 200 times in one call
     assert n == tet_hv.launches - n0 == st.operator_applications - ops0 > 200
 

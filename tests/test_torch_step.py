@@ -189,7 +189,9 @@ def test_self_contact_scene_not_yet_ported():
 
 def test_port_never_imports_jax():
     # jax and the JAX package are made unimportable, then a ground step, a
-    # self-contact step and a scripted (twist) step
+    # self-contact step and a scripted (twist) step, a contact step split
+    # over two gloo ranks (whose processes must not load jax either) and
+    # the native runtime
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -217,6 +219,15 @@ def test_port_never_imports_jax():
         "import contextlib, io\n"
         "with contextlib.redirect_stdout(io.StringIO()):\n"
         "    assert ipc_tpu_torch.diagnostic.ccd_probe('cpu')\n"
+        "from ipc_tpu_torch.parallel.launch import launch\n"
+        "from ipc_tpu_torch.parallel.jobs import step_job\n"
+        "import ipc_tpu_torch.parallel.__main__\n"
+        "outs = launch(step_job, 2, 'gloo', 'cpu', (dict(n_cells=1, dtype='float64',\n"
+        "              with_contact=True),), timeout=240)\n"
+        "assert all(o['rows'][0]['stats']['newton_iters'] > 0 for o in outs)\n"
+        "assert not any(o['foreign_modules'] for o in outs), outs\n"
+        "import ipc_tpu_torch.native\n"
+        "ipc_tpu_torch.native.available()\n"
         "sys.modules.pop('jax')\n"
         "sys.modules.pop('ipc_tpu')\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ipc_tpu')\n"
@@ -251,7 +262,9 @@ def test_port_sources_import_neither_jax_nor_ipc_tpu():
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 30
     for name in ("qp/constraints.py", "qp/admm.py", "qp/stepper.py", "diagnostic.py",
-                 "meshproc.py"):
+                 "meshproc.py", "parallel/spmd.py", "parallel/sharding.py",
+                 "parallel/launch.py", "parallel/jobs.py", "parallel/__main__.py",
+                 "native/__init__.py"):
         assert os.path.join(ROOT, "ipc_tpu_torch", name) in paths
     bad = {os.path.relpath(p, ROOT): sorted(_imported_modules(p) & {"jax", "jaxlib", "ipc_tpu"})
            for p in paths}

@@ -26,8 +26,8 @@ import torch
 
 from ipc_tpu_torch.hv_timing import assemble_csr, hv_bound
 from ipc_tpu_torch.models.primitives import box_grid
-from ipc_tpu_torch.ops.tet_hv import (_launch_args, make_tet_hv_table, tet_hv,
-                                      tet_hv_reference, tet_rows_reference)
+from ipc_tpu_torch.ops.tet_hv import (_launch_args, device_launches, make_tet_hv_table,
+                                      tet_hv, tet_hv_reference, tet_rows_reference)
 from ipc_tpu_torch.scenes import build_scene
 
 # tet topologies for the kernel cases: (tets, n_verts) builders
@@ -39,7 +39,18 @@ SHAPES = {
     # vertex 0 in 40 tets: pass B's indices beyond the 32 it holds in registers
     "degree_40": lambda: (np.array([[0, 3 * i + 1, 3 * i + 2, 3 * i + 3] for i in range(40)]), 121),
     "ring_wraps": lambda: _scene_tets(16),              # 49,152 tets
+    # a sharded step's rank: its half of the padded tets over every vertex
+    "rank_shard": lambda: _shard_tets(4, 0),             # 384 tets
 }
+
+
+def _shard_tets(n_cells, rank, world=2):
+    """Rank's tets of the scene padded for `world` ranks (parallel/
+    sharding.py), over the padded mesh's vertices."""
+    from ipc_tpu_torch.parallel.sharding import shard_mesh_data
+
+    padded, rows = shard_mesh_data(build_scene(n_cells, torch.float64, "cpu").mesh, world, rank)
+    return padded.tets.numpy()[slice(*rows["tets"])], int(padded.x_rest.shape[0])
 
 
 def _scene_tets(n_cells):
@@ -201,6 +212,31 @@ def _tetless_problem(dtype, device="cpu"):
     return n, _problem(None, dtype, seed=5, device=device, topology=(tets, n + 4))
 
 
+@pytest.mark.parametrize("world", [2, 4])
+def test_rank_shards_sum_to_the_whole_product(world):
+    """Each rank's table covers its own tets over all vertices: the rows
+    its tets do not touch are exact zeros, and the ranks' products add up
+    to the whole padded mesh's (1e-13 of its largest entry)."""
+    from ipc_tpu_torch.parallel.sharding import shard_mesh_data
+
+    padded, _ = shard_mesh_data(build_scene(3, torch.float64, "cpu").mesh, world)
+    whole, n_verts = padded.tets.numpy(), int(padded.x_rest.shape[0])
+    _, H, v, table, Ht, vt = _problem(None, torch.float64, seed=7, topology=(whole, n_verts))
+    ref = tet_hv(Ht, vt, table)
+    total = torch.zeros_like(ref)
+    T = whole.shape[0]
+    for rank in range(world):
+        tets, n = _shard_tets(3, rank, world)
+        a, b = T * rank // world, T * (rank + 1) // world
+        assert n == n_verts and np.array_equal(tets, whole[a:b])
+        part = tet_hv(Ht[a:b].contiguous(), vt, make_tet_hv_table(tets, n))
+        untouched = np.ones(n, bool)
+        untouched[tets.reshape(-1)] = False
+        assert untouched.any() and bool((part[torch.as_tensor(untouched)] == 0).all())
+        total = total + part
+    assert (total - ref).abs().max().item() <= 1e-13 * ref.abs().max().item()
+
+
 def test_tetless_rows_are_all_padding():
     n, (tets, _, _, table, Ht, vt) = _tetless_problem(torch.float64)
     assert table.n_verts == n + 4
@@ -220,3 +256,26 @@ def test_kernel_writes_zeros_for_tetless_vertices(cuda_device, dtype, rel_tol):
     assert torch.all(out[n:] == 0) and torch.equal(out, again)
     err = (out[:n] - plain[:n]).abs().max().item()
     assert err <= rel_tol * plain.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_the_card_counts_its_launches(cuda_device):
+    """device_launches reads the kernel's own device counter: one per call,
+    and one per replay of a CUDA graph that holds a call."""
+    _, _, _, table, Ht, vt = _problem(None, torch.float32, seed=3, device=cuda_device,
+                                      topology=SHAPES[sorted(SHAPES)[0]]())
+    n0 = device_launches(cuda_device)
+    out = tet_hv(Ht, vt, table)
+    assert device_launches(cuda_device) == n0 + 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tet_hv(Ht, vt, table)  # the warm-up before a capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tet_hv(Ht, vt, table)
+    for _ in range(3):
+        graph.replay()
+    assert device_launches(cuda_device) == n0 + 5
+    assert torch.equal(got, out)
