@@ -166,15 +166,37 @@ and ends the run with a non-zero exit code (nothing is caught):
      group at the same time: x and stats bitwise equal to the card's own
      unsharded make_step over the padded mesh (a sum over one rank is the
      identity). The CPU side runs in a worker process of the host
-     reference's pool, beside the timed phases.
+     reference's pool, beside the timed phases;
+ 20. battery path: the port's paper battery (ipc_tpu_torch/tools/) on
+     scene files written into build/battery/ (ipc_tpu_torch/tools/
+     twist_scenes.py: scenes/matTwist20.txt's settings over a .msh of
+     models/primitives.mat(n)). Timed, in this process, at full width:
+     matTwist100.txt (60,000 tets, the paper's mat100x100 twist) through
+     paper_battery.run_one in float32 on the device step for 4 steps; its
+     record must be PASS (finite, every det > 0, no edge-triangle
+     intersection at the end) with tet_hv launched once per operator
+     application (counts zeroed just before); printed: the record, seconds
+     per step, Newton iterations, peak device memory above what was
+     allocated when run_one began. Untimed, in a child
+     process beside the references: the parent sweep (paper_battery.main,
+     one child process per scene, float32, 4 steps, budget 60 s + headroom
+     30 s) over build/battery/sweep/: matTwist20.txt must be PASS on the
+     device step, matTwist225.txt (its mesh absent) SKIP, and
+     meshSeqStall.txt TIMEOUT (its mesh sequence's frame 2 is a pipe no
+     one writes, so step 2 blocks until the kill on any host); then
+     battery_summary and gen_status_battery --status build/battery/STATUS.md
+     on the sweep's JSON (the tally printed), and batch over matTwist20.txt
+     (--f32 --jit-step, 2 steps), which must exit 0 and write its
+     artifacts.
 
-Order: the timed phases 1-4, 6-8, 10, 12, 13, 15 and 18 run first, alone
-on the card; then the references 5, 9 and 11, with 14 in one child
-process and 16, 17 and 19 in another beside them.
+Order: the timed phases 1-4, 6-8, 10, 12, 13, 15, 18 and 20's run_one run
+first, alone on the card; then the references 5, 9 and 11, with 20's sweep
+in one child process, 14 in another and 16, 17 and 19 in a third beside
+them.
 
 The line before the last is the kernels record (its launches: the
-contact, twist, driver, host, QP and sharded paths', the last summed
-over its ranks; timed at the driver shape), the last line
+contact, twist, driver, host, QP, sharded and battery paths', the sharded
+one summed over its ranks; timed at the driver shape), the last line
 {"ok": true, "device": {...}}. Without a CUDA device the run fails in
 phase 1 and prints neither.
 
@@ -182,7 +204,8 @@ phase 1 and prints neither.
 device and build phases and the phases named (a check of a few phases;
 its kernels line counts only their launches and times the kernel at the
 driver shape alone; qp_path alone first runs the contact scene's 8
-device steps to reach its start).
+device steps to reach its start; battery_path runs its run_one and its
+sweep).
 """
 
 import json
@@ -1702,6 +1725,142 @@ def phase_sharded_reference(device, cpu_job):
             check(same and same_stats, f"{tag}: the 1-rank group is the unsharded step")
 
 
+def _battery_dir(*parts):
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "battery", *parts)
+
+
+def phase_battery_path(device, n=100, n_steps=4):
+    """The paper battery's run_one at full width (module docstring, phase
+    20), in build/battery/ of this checkout. Returns its tet_hv launches."""
+    import shutil
+
+    import torch
+
+    from ipc_tpu_torch.ops.tet_hv import tet_hv
+    from ipc_tpu_torch.tools import paper_battery
+    from ipc_tpu_torch.tools.twist_scenes import write_twist_scene
+
+    shutil.rmtree(_battery_dir(), ignore_errors=True)
+    t0 = time.perf_counter()
+    scene = write_twist_scene(_battery_dir(), n)
+    print(f"[battery] wrote {scene} (mat({n}) as .msh) in {time.perf_counter() - t0:.2f} s")
+    counts = {}
+    tet_hv.launches = 0
+    t0 = time.perf_counter()
+    rec = paper_battery.run_one(scene, n_steps, 240.0, dtype=torch.float32, use_jit=True,
+                                device=device, counts=counts)
+    wall = time.perf_counter() - t0
+    launches = tet_hv.launches
+    print(f"[battery] record {json.dumps(rec)}")
+    print(f"[battery] matTwist{n}: {rec['tets']} tets, {rec['verts']} verts, path "
+          f"{rec['path']}, {rec['steps']} steps in {rec['secs']} s "
+          f"({rec['secs'] / max(rec['steps'], 1):.4f} s per step), newton_iters="
+          f"{rec['newton_iters']}, kappa_doublings={rec['kappa_doublings']}, "
+          f"peak_mem_bytes={rec['peak_mem_bytes']} ({rec['peak_mem_bytes'] / 2**30:.3f} GiB above "
+          f"what was allocated when run_one began), "
+          f"tet_hv launches={launches} operator applications="
+          f"{counts['operator_applications']} host syncs={counts['host_syncs']}; run_one "
+          f"{wall:.2f} s with assembly and the final checks")
+    check(rec["status"] == "PASS", "the battery's matTwist100 record is PASS")
+    check((rec["path"], rec["steps"], rec["tets"]) == ("jit", n_steps, 6 * n * n),
+          "the battery ran the device step for every step at full width")
+    check(launches > 0 and launches == counts["operator_applications"],
+          "one tet_hv launch per operator application (battery)")
+    return launches
+
+
+STALL_SCENE = """energy NH
+timeIntegration BE
+time 1 0.025
+density 1000
+stiffness 1e5 0.4
+shapes input 2
+input/tetMeshes/box2.msh 0 0.5 0  0 0 0  1 1 1
+tri.obj 3 0 0  0 0 0  1 1 1  meshSeq seq
+selfCollisionOff
+"""
+
+
+def _battery_sweep_process():
+    """Process target: the untimed part of phase 20 (module docstring) on
+    the card, in build/battery/."""
+    import os
+
+    from ipc_tpu_torch import io_mesh
+    from ipc_tpu_torch.models.primitives import box_grid
+    from ipc_tpu_torch.tools import batch, battery_summary, gen_status_battery, paper_battery
+    from ipc_tpu_torch.tools.twist_scenes import TWIST_SCENE, write_twist_scene
+
+    t0 = time.perf_counter()
+    scenes = _battery_dir("sweep")
+    os.makedirs(os.path.join(scenes, "seq"))
+    write_twist_scene(scenes, 20)
+    with open(os.path.join(scenes, "matTwist225.txt"), "w") as f:
+        f.write(TWIST_SCENE.format(mesh="input/tetMeshes/mat225x225.msh"))  # absent
+    io_mesh.write_msh(os.path.join(scenes, "input", "tetMeshes", "box2.msh"),
+                      *box_grid(2, 2, 2))
+    tri = (np.array([[0.0, 0, 0], [1, 0, 0], [0, 0, 1]]), np.array([[0, 1, 2]]))
+    io_mesh.write_obj(os.path.join(scenes, "tri.obj"), *tri)
+    for frame in (0, 1):
+        io_mesh.write_obj(os.path.join(scenes, "seq", f"{frame}.obj"), *tri)
+    # frame 2, read by step 2, is a pipe nobody writes: the child blocks
+    # there for good and is killed at budget + headroom on any host
+    os.mkfifo(os.path.join(scenes, "seq", "2.obj"))
+    with open(os.path.join(scenes, "meshSeqStall.txt"), "w") as f:
+        f.write(STALL_SCENE)
+    out = _battery_dir("BATTERY.json")
+    rc = paper_battery.main(["--scenes", scenes, "--dtype", "f32", "--steps", "4",
+                             "--budget", "60", "--headroom", "30", "--out", out])
+    check(rc == 0, "the sweep found its scenes")
+    with open(out) as f:
+        recs = {r["scene"]: r for r in json.load(f)}
+    for r in recs.values():
+        print(f"[battery-sweep] {json.dumps(r)}", flush=True)
+    check(sorted(recs) == ["matTwist20.txt", "matTwist225.txt", "meshSeqStall.txt"],
+          "the sweep recorded every scene")
+    ok, skip, stall = (recs[k] for k in ("matTwist20.txt", "matTwist225.txt",
+                                         "meshSeqStall.txt"))
+    check((ok["status"], ok["path"], ok["steps"], ok["config"]) == ("PASS", "jit", 4, "cuda-f32"),
+          "matTwist20 passes on the card's device step")
+    check(skip["status"] == "SKIP" and "mat225x225.msh" in skip["reason"],
+          "a scene with an absent mesh is SKIP")
+    check(stall["status"] == "TIMEOUT", "the stalled child is killed at budget + headroom")
+    battery_summary.main([out])
+    status = _battery_dir("STATUS.md")
+    with open(status, "w") as f:
+        f.write("# Battery of the port\n")
+    gen_status_battery.main([out, "--status", status])
+    with open(status) as f:
+        txt = f.read()
+    check("generated by ipc_tpu_torch/tools/gen_status_battery.py from BATTERY.json" in txt
+          and "**Battery tally over 3 scene records: 1 PASS / 1 SKIP / 1 TIMEOUT / 0 FAIL.**"
+          in txt, "gen_status_battery wrote the tally and the table")
+    folder, out_dir = _battery_dir("batch"), _battery_dir("batch_out")
+    write_twist_scene(folder, 20)
+    rc = batch.main([folder, "--out", out_dir, "--steps", "2", "--f32", "--jit-step"])
+    written = sorted(os.listdir(os.path.join(out_dir, "matTwist20")))
+    print(f"[battery-sweep] batch exit code {rc}, artifacts {written}", flush=True)
+    check(rc == 0, "batch ran every scene")
+    check({"iterStats.txt", "sysE.txt", "info.txt", "status2.npz", "surf2.obj"} <= set(written),
+          "batch wrote its artifacts")
+    print(f"[battery-sweep] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def start_battery_sweep_process():
+    import multiprocessing
+
+    child = multiprocessing.get_context("spawn").Process(target=_battery_sweep_process)
+    child.start()
+    return child
+
+
+def join_battery_sweep(child):
+    child.join()
+    check(child.exitcode == 0, f"the battery sweep passed (exit code {child.exitcode})")
+
+
 def _card_phases_process(names, sharded_cpu):
     """Process target: the named untimed phases on the card, in order;
     `sharded_cpu` is _sharded_cpu_case's result for the sharded reference."""
@@ -1768,7 +1927,7 @@ def main(argv=None):
     run("build", phase_build, always=True)
     # the host reference's CPU side runs in two single-threaded worker
     # processes beside the card phases before it
-    pool = cpu_jobs = card_child = sharded_cpu = None
+    pool = cpu_jobs = card_child = sharded_cpu = battery_child = None
     if only is None or {"host_reference", "sharded_reference"} & only:
         pool = multiprocessing.get_context("spawn").Pool(2)
     if only is None or "host_reference" in only:
@@ -1793,9 +1952,12 @@ def main(argv=None):
         launches += run("host_path", phase_host_path, device) or 0
         launches += run("qp_path", phase_qp_path, device, qp_lead) or 0
         launches += run("sharded_path", phase_sharded_path, device, qp_lead) or 0
-        # then the references, which are not timed: the host reference, and
-        # the QP reference with the diagnostic, in two child processes on
-        # the same card beside the others
+        launches += run("battery_path", phase_battery_path, device) or 0
+        # then the references, which are not timed: the battery's sweep, the
+        # host reference, and the QP reference with the diagnostic, in
+        # three child processes on the same card beside the others
+        if only is None or "battery_path" in only:
+            battery_child = start_battery_sweep_process()
         child = start_host_reference_process(cpu_jobs)
         card_child = start_card_phases_process(
             [n for n in ("qp_reference", "diagnostic", "sharded_reference")
@@ -1809,8 +1971,10 @@ def main(argv=None):
             run("qp_reference+diagnostic+sharded_reference", join_card_phases, card_child,
                 always=True)
         run("host_reference", join_host_reference, child)
+        if battery_child is not None:
+            run("battery_path sweep (child)", join_battery_sweep, battery_child, always=True)
     finally:
-        for c in (child, card_child):
+        for c in (child, card_child, battery_child):
             if c is not None and c.is_alive():
                 c.terminate()
                 c.join()

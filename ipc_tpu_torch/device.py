@@ -14,10 +14,15 @@ def require_cuda():
 
 
 def resolve_device(device=None):
-    """The device an entry point runs on: the card when `device` is None
-    (RuntimeError without one), else torch.device(device). CPU callers pass
-    "cpu" explicitly."""
-    return require_cuda() if device is None else torch.device(device)
+    """The device an entry point runs on: the card when `device` is None,
+    else torch.device(device); RuntimeError when that is CUDA and no card
+    is visible (no fallback to the CPU). CPU callers pass "cpu" explicitly."""
+    if device is None:
+        return require_cuda()
+    device = torch.device(device)
+    if device.type == "cuda":
+        require_cuda()
+    return device
 
 
 def as_dtype(dtype):

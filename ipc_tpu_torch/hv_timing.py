@@ -1,9 +1,10 @@
 """Time the Hv kernel (ops/tet_hv.py) on the card beside its bound, its
 plain version and a library yardstick.
 
-    python -m ipc_tpu_torch.hv_timing
+    python -m ipc_tpu_torch.hv_timing [scene:n ...]
 
-prints one JSON object per (scene, n, dtype): the two-box scene's
+prints one JSON object per (scene, n, dtype), for the shapes named (e.g.
+`twist:150 twist:225`, the paper's larger mat twists) or by default the two-box scene's
 topology at n_cells 8 and 20 (6,144 and 96,000 tets), the mat-twist
 scene's at n = 100 (60,000 tets, 20,402 vertices), the driver scene's
 (the boxes at n_cells 20 over a meshCO plate: its 4 tet-less vertices
@@ -233,12 +234,19 @@ def measure(n_cells, dtype, device, scene="boxes"):
     )
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     from ipc_tpu_torch.device import require_cuda
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("shapes", nargs="*", help="scene:n (scene boxes|twist|driver|shard); "
+                    "default: SCENES")
+    args = ap.parse_args(argv)
+    shapes = [(s.split(":")[0], int(s.split(":")[1])) for s in args.shapes] or SCENES
     device = require_cuda()
     print(f"[hv_timing] {torch.cuda.get_device_name(0)}", flush=True)
-    for scene, n_cells in SCENES:
+    for scene, n_cells in shapes:
         for dtype in (torch.float32, torch.float64):
             print(json.dumps(measure(n_cells, dtype, device, scene)), flush=True)
 

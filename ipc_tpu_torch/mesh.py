@@ -169,12 +169,15 @@ def mesh_arrays(
 
 def mesh_from_arrays(arrays, device, dtype):
     """MeshData from numpy arrays named like its fields: floats cast to
-    `dtype`, indices to int64, the mask to bool, all on `device`."""
+    `dtype`, indices to int64, the mask to bool, all on `device`, each
+    row-major (a column-major V, as a rotated scene shape gives, would
+    carry its layout into the state and every vector the step derives
+    from it; the Hv kernel takes only contiguous vectors)."""
 
     def conv(name):
         a = np.asarray(arrays[name])
         if name in FLOAT_FIELDS:
-            return torch.as_tensor(np.array(a, np.float64), device=device).to(dtype)
+            return torch.as_tensor(np.array(a, np.float64, order="C"), device=device).to(dtype)
         if name == "dbc_mask":
             return torch.as_tensor(a.astype(bool), device=device)
         return torch.as_tensor(a.astype(np.int64), device=device)
@@ -215,7 +218,7 @@ def append_kinematic_surface(mesh, meta, V_co, tris=None, edges=None):
     Returns (new MeshData on the mesh's device, new MeshMeta,
     (v_start, v_end) of the object's vertices)."""
     device, dtype = mesh.device, mesh.dtype
-    V_co = np.asarray(V_co, dtype=np.float64)
+    V_co = np.array(V_co, dtype=np.float64, order="C")
     n_old = int(mesh.x_rest.shape[0])
     n_co = len(V_co)
 

@@ -138,7 +138,8 @@ def _install(timers, stepper, host):
 
 def _run(step, counts, state, n, host):
     """n steps from state: rows of (wall s, Newton iterations, PCG
-    iterations, host syncs, largest active-pair count)."""
+    iterations, host syncs, largest active-pair count, the device step's
+    convergence fields as text)."""
     rows = []
     for _ in range(n):
         syncs = counts.host_syncs
@@ -147,9 +148,12 @@ def _run(step, counts, state, n, host):
         torch.cuda.synchronize()
         if host:
             k, it, act = len(s.pcg_iters), sum(s.pcg_iters), max(s.n_constraints, default=0)
+            extra = ""
         else:
             k, it, act = s.newton_iters, s.pcg_iters_total, s.active_pt_max + s.active_ee_max
-        rows.append((time.perf_counter() - t0, k, it, counts.host_syncs - syncs, act))
+            extra = (f" dist_to_opt={s.dist_to_opt:.4e} last_alpha={s.last_alpha:.4g} "
+                     f"kappa_doublings={s.kappa_doublings} script_scale={s.script_scale:.4g}")
+        rows.append((time.perf_counter() - t0, k, it, counts.host_syncs - syncs, act, extra))
     return state, rows
 
 
@@ -184,9 +188,9 @@ def main(argv=None):
     start, _ = _run(step, counts, st.initial_state(), args.settle, host)
 
     _, plain = _run(step, counts, start, args.steps, host)
-    for i, (w, k, it, sy, act) in enumerate(plain):
+    for i, (w, k, it, sy, act, extra) in enumerate(plain):
         print(f"[profile] plain step {args.settle + i}: wall_s={w:.4f} newton_iters={k} "
-              f"pcg_iters={it} host_syncs={sy} active_pairs_max={act}")
+              f"pcg_iters={it} host_syncs={sy} active_pairs_max={act}{extra}")
     wall = sum(r[0] for r in plain)
     newton = sum(r[1] for r in plain)
     print(f"[profile] plain: {wall:.4f} s for {args.steps} steps, {newton} Newton "

@@ -256,7 +256,7 @@ def _imported_modules(path):
 
 def test_port_sources_import_neither_jax_nor_ipc_tpu():
     """Static check over every source of the port and chip_smoke.py, imports
-    inside functions included."""
+    inside functions included: no jax, no ipc_tpu, no top-level tools."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "ipc_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
@@ -264,9 +264,13 @@ def test_port_sources_import_neither_jax_nor_ipc_tpu():
     for name in ("qp/constraints.py", "qp/admm.py", "qp/stepper.py", "diagnostic.py",
                  "meshproc.py", "parallel/spmd.py", "parallel/sharding.py",
                  "parallel/launch.py", "parallel/jobs.py", "parallel/__main__.py",
-                 "native/__init__.py"):
+                 "native/__init__.py", "tools/paper_battery.py", "tools/batch.py",
+                 "tools/battery_summary.py", "tools/gen_status_battery.py",
+                 "tools/twist_scenes.py"):
         assert os.path.join(ROOT, "ipc_tpu_torch", name) in paths
-    bad = {os.path.relpath(p, ROOT): sorted(_imported_modules(p) & {"jax", "jaxlib", "ipc_tpu"})
+    # nor the repository's tools/ (the JAX tools the port's tools/ mirror)
+    bad = {os.path.relpath(p, ROOT): sorted(_imported_modules(p)
+                                            & {"jax", "jaxlib", "ipc_tpu", "tools"})
            for p in paths}
     assert not {p: m for p, m in bad.items() if m}
 
