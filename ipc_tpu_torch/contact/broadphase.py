@@ -10,7 +10,8 @@ Outputs are exact-size: (n, 2) int64 index pairs from `torch.nonzero`, whose
 row-major order is `jnp.nonzero`'s, and the count n as a host int (the JAX
 package's fixed capacities and -1 padding are TPU devices; the count stays
 so the step's stats compare). `torch.nonzero` reads its size back to the
-host: one sync per family.
+host: one sync per family (`reading` site "broadphase.nonzero",
+utils/observability.py).
 
 `reach_mask` runs in float32 with the 1e-5 threshold inflation whatever the
 working dtype, exactly as the JAX package's dense and grid paths do: that is
@@ -18,6 +19,8 @@ what makes the dense and grid candidate sets identical.
 """
 
 import torch
+
+from ipc_tpu_torch.utils.observability import reading
 
 __all__ = [
     "vert_aabbs",
@@ -111,7 +114,9 @@ def overlap_pairs(boxes_a, boxes_b, valid_mask):
     lo_b, hi_b = boxes_b[:, 0], boxes_b[:, 1]
     sep = ((lo_a[:, None, :] > hi_b[None, :, :])
            | (lo_b[None, :, :] > hi_a[:, None, :])).any(dim=2)
-    pairs = torch.nonzero(~sep & valid_mask)
+    mask = ~sep & valid_mask
+    with reading("broadphase.nonzero"):
+        pairs = torch.nonzero(mask)
     return pairs, int(pairs.shape[0])
 
 

@@ -8,6 +8,11 @@ advances its time by steps that provably cannot close more than the
 remaining gap and stops leaving `slackness * d0` of it. The JAX package
 runs a `fori_loop` of `max_iter` iterations with a `done` mask; the port
 runs the same fixed count over all pairs at once, with no host read.
+Counters (utils/observability.py): `ccd.passes` (max_iter per call) and
+`ccd.pair_passes` (pairs x passes) on the host, always; while tracing is
+on, `ccd.live_passes` (passes that begin with a pair not done) and
+`ccd.live_pair_passes` (pairs not done at a pass's start, summed) on the
+device: one in-place add of `done` per pass, which changes no result.
 
 Interval CCD (`ti_pt`, `ti_ee`): with linear vertex motion the separation
 function is affine in t for fixed barycentric coordinates and affine in
@@ -24,6 +29,7 @@ it by `jax.grad`), which keeps sliding contacts certified in one test.
 import torch
 
 from ipc_tpu_torch.ops.distance import cross, edge_edge_dist2, point_triangle_dist2
+from ipc_tpu_torch.utils.observability import count, count_device, tracing
 
 __all__ = ["accd_pt", "accd_ee", "ti_pt", "ti_ee"]
 
@@ -47,13 +53,25 @@ def _accd(x4, p4, dist2_fn, slackness, max_iter, t_max=1.0):
     d0_floor = 1e-6 * torch.clamp(d0, min=1e-30)
     t = torch.zeros_like(d0)
     done = no_motion
+    n = int(d0.shape[0])
+    count("ccd.passes", max_iter)
+    count("ccd.pair_passes", n * max_iter)
+    # per pair, the passes it began done; done never clears, so a pair's
+    # live passes come first, and the call's live passes number max_iter
+    # less the least of these
+    done_passes = torch.zeros_like(d0, dtype=torch.int32) if tracing() and n else None
     for _ in range(max_iter):
+        if done_passes is not None:
+            done_passes += done
         d = torch.sqrt(torch.clamp(dist2_fn(x4 + t[:, None, None] * p4), min=0.0))
         step = 0.9 * (d - g) / l_safe
         t_new = torch.clamp(t + step, max=t_max)
         done_new = done | (step <= d0_floor) | (t >= t_max)
         t = torch.where(done, t, t_new)
         done = done_new
+    if done_passes is not None:
+        count_device("ccd.live_pair_passes", n * max_iter - done_passes.sum())
+        count_device("ccd.live_passes", max_iter - done_passes.min())
     t = torch.where(no_motion, torch.full_like(t, t_max), t)
     return torch.clamp(t, min=0.0)
 

@@ -6,7 +6,12 @@ exact-size tensors: the JAX package's fixed capacities, -1 padding, valid
 masks and `ensure_*` regrow are TPU devices and are not ported; the true
 counts stay, so a step's stats compare with the JAX package's.
 
-Every value read back to the host (set sizes) adds to `host_syncs`.
+Every value read back to the host (set sizes) goes through
+utils/observability's `host_read`, which counts it. The layers are spans
+there: `broadphase` (build_candidates, has_intersection's query),
+`active_set`, `pairs` (the active pairs' energy, gradient and blocks, the
+friction capture) and `ccd` with `accd_pt` / `accd_ee` (or `ti_pt` /
+`ti_ee`) inside.
 
 `ccd_method` picks ACCD ("accd") or, with "ti", the per-pair maximum of
 the interval CCD and ACCD (both conservative, so their maximum is too).
@@ -61,6 +66,7 @@ from ipc_tpu_torch.ops.scatter import make_dynamic_gather_sum
 from ipc_tpu_torch.ops.spd import make_psd
 from ipc_tpu_torch.parallel import spmd
 from ipc_tpu_torch.parallel.sharding import row_range
+from ipc_tpu_torch.utils.observability import host_read, span
 
 __all__ = ["Candidates", "ActiveSet", "SelfContact", "compact"]
 
@@ -69,7 +75,7 @@ def compact(*masks):
     """Ascending indices of the True entries of each 1-D mask (what
     `torch.nonzero` gives), with one host read for all of them: the counts,
     then a stable sort per mask. Returns (list of index tensors, counts)."""
-    counts = torch.stack([m.sum() for m in masks]).tolist()
+    counts = host_read("compact", torch.stack([m.sum() for m in masks]))
     idx = [torch.sort((~m).to(torch.uint8), stable=True).indices[:n]
            for m, n in zip(masks, counts)]
     return idx, counts
@@ -133,7 +139,6 @@ class SelfContact:
         self.broadphase = broadphase
         self.big = self._classify_big(mesh) if broadphase == "grid" else None
         self.tab = SC.SlotTables(mesh.x_rest.device, mesh.x_rest.dtype)
-        self.host_syncs = 0
         self._free = None  # (all-False mask, its big classification), built on use
 
     def rebind_mesh(self, mesh):
@@ -226,7 +231,6 @@ class SelfContact:
                                         dbc, disp, gap, with_et=with_et, big=big, shard=shard)
             sharded = sharded and shard is None  # else already the rank's share
             out = [fused["pt"], fused["ee"], fused["et"]]
-            self.host_syncs += fused["host_syncs"]
         else:
             pt, pt_n = BP.pt_candidates(x, mesh.surf_verts, mesh.surf_tris, dbc, disp, gap)
             ee, ee_n = BP.ee_candidates(x, mesh.surf_edges, dbc, disp, gap)
@@ -235,7 +239,6 @@ class SelfContact:
             else:
                 et = torch.zeros((0, 2), dtype=torch.int64, device=x.device)
                 et_n = 0
-            self.host_syncs += 3 if with_et else 2
             out = [(pt, pt_n), (ee, ee_n), (et, et_n)]
         if sharded:
             out = [self._rank_share(p) for p, _ in out]
@@ -247,14 +250,15 @@ class SelfContact:
         in the co-moving frame and inflated by `gap`. dbc_free: as if no
         vertex were Dirichlet (module docstring)."""
         mesh = self.mesh
-        (pt, pt_n), (ee, ee_n), (et, et_n) = self.candidate_pairs(x, disp, gap, with_et,
-                                                                  dbc_free)
-        pt_vids = torch.cat([mesh.surf_verts[pt[:, 0]][:, None], mesh.surf_tris[pt[:, 1]]],
-                            dim=1)
-        ee_vids = torch.cat([mesh.surf_edges[ee[:, 0]], mesh.surf_edges[ee[:, 1]]], dim=1)
-        xr = mesh.x_rest
-        ee_eps_x = eps_x_ee(xr[ee_vids[:, 0]], xr[ee_vids[:, 1]], xr[ee_vids[:, 2]],
-                            xr[ee_vids[:, 3]])
+        with span("broadphase"):
+            (pt, pt_n), (ee, ee_n), (et, et_n) = self.candidate_pairs(x, disp, gap, with_et,
+                                                                      dbc_free)
+            pt_vids = torch.cat([mesh.surf_verts[pt[:, 0]][:, None],
+                                 mesh.surf_tris[pt[:, 1]]], dim=1)
+            ee_vids = torch.cat([mesh.surf_edges[ee[:, 0]], mesh.surf_edges[ee[:, 1]]], dim=1)
+            xr = mesh.x_rest
+            ee_eps_x = eps_x_ee(xr[ee_vids[:, 0]], xr[ee_vids[:, 1]], xr[ee_vids[:, 2]],
+                                xr[ee_vids[:, 3]])
         return Candidates(pt_vids=pt_vids, ee_vids=ee_vids, ee_eps_x=ee_eps_x,
                           et_pairs=et, pt_count=pt_n, ee_count=ee_n, et_count=et_n)
 
@@ -264,6 +268,10 @@ class SelfContact:
         """The candidates with d^2 < dHat at x or, given `disp`, possibly
         anywhere on [x, x + disp] (per-pair travel bound in the co-moving
         frame)."""
+        with span("active_set"):
+            return self._active_set(x, cand, dHat, disp)
+
+    def _active_set(self, x, cand, dHat, disp):
         disp = self._comoving(disp)
         d_pt, d_ee = SC.active_dist2(x, cand.pt_vids, cand.ee_vids, self.tab)
         if disp is None:
@@ -280,7 +288,6 @@ class SelfContact:
             act_pt = d_pt < lim_pt * lim_pt
             act_ee = d_ee < lim_ee * lim_ee
         (sp, se), (n_pt, n_ee) = compact(act_pt, act_ee)
-        self.host_syncs += 1
         return ActiveSet(vids_p=cand.pt_vids[sp], vids_e=cand.ee_vids[se],
                          eps_e=cand.ee_eps_x[se], cnt_pt=n_pt, cnt_ee=n_ee)
 
@@ -294,34 +301,36 @@ class SelfContact:
         if act.vert_sum is None:
             ids = torch.cat([act.vids_p, act.vids_e]).reshape(-1)
             act.vert_sum = make_dynamic_gather_sum(ids, int(self.mesh.x_rest.shape[0]))
-            self.host_syncs += act.vert_sum.host_syncs
         return act.vert_sum
 
     def energy_active(self, x, act, kappa, dHat, df=False):
         """Barrier energy of an active set; df=True gives a compensated
         (hi, lo) pair (ops/compensated.py)."""
-        e_pt = SC.pt_pair_energy(x[act.vids_p], dHat, self.tab)
-        e_ee = SC.ee_pair_energy(x[act.vids_e], act.eps_e, dHat, self.tab)
-        if df:
-            return df_scale(df_add(df_sum(e_pt), df_sum(e_ee)), kappa)
-        return kappa * (e_pt.sum() + e_ee.sum())
+        with span("pairs"):
+            e_pt = SC.pt_pair_energy(x[act.vids_p], dHat, self.tab)
+            e_ee = SC.ee_pair_energy(x[act.vids_e], act.eps_e, dHat, self.tab)
+            if df:
+                return df_scale(df_add(df_sum(e_pt), df_sum(e_ee)), kappa)
+            return kappa * (e_pt.sum() + e_ee.sum())
 
     def gradient_active(self, x, act, kappa, dHat):
         """(V,3) barrier gradient of an active set."""
-        g_pt = SC.pt_pair_grad(x[act.vids_p], dHat, self.tab)
-        g_ee = SC.ee_pair_grad(x[act.vids_e], act.eps_e, dHat, self.tab)
-        rows = torch.cat([kappa * g_pt.reshape(-1, 3), kappa * g_ee.reshape(-1, 3)])
-        return self.vert_sum(act)(rows)
+        with span("pairs"):
+            g_pt = SC.pt_pair_grad(x[act.vids_p], dHat, self.tab)
+            g_ee = SC.ee_pair_grad(x[act.vids_e], act.eps_e, dHat, self.tab)
+            rows = torch.cat([kappa * g_pt.reshape(-1, 3), kappa * g_ee.reshape(-1, 3)])
+            return self.vert_sum(act)(rows)
 
     def hessian_blocks_from_active(self, x, act, kappa, dHat, project=True):
         """SPD 12x12 blocks of an active set: (vids (Ca,4), H (Ca,12,12),
         (cnt_pt, cnt_ee))."""
-        H = torch.cat([SC.pt_pair_hess(x[act.vids_p], dHat, self.tab),
-                       SC.ee_pair_hess(x[act.vids_e], act.eps_e, dHat, self.tab)])
-        if project and H.shape[0]:
-            H = make_psd(H)
-        vids = torch.cat([act.vids_p, act.vids_e])
-        return vids, kappa * H, (act.cnt_pt, act.cnt_ee)
+        with span("pairs"):
+            H = torch.cat([SC.pt_pair_hess(x[act.vids_p], dHat, self.tab),
+                           SC.ee_pair_hess(x[act.vids_e], act.eps_e, dHat, self.tab)])
+            if project and H.shape[0]:
+                H = make_psd(H)
+            vids = torch.cat([act.vids_p, act.vids_e])
+            return vids, kappa * H, (act.cnt_pt, act.cnt_ee)
 
     def hessian_blocks_active(self, x, cand, kappa, dHat, project=True):
         act = self.active_set(x, cand, dHat)
@@ -331,16 +340,16 @@ class SelfContact:
         """Lagged friction state compacted to the pairs with lam > 0, with
         the vertex gather-sum over their stencils (`vert_sum`) and the
         true count."""
-        fr = SC.capture_friction(x, cand.pt_vids, cand.ee_vids, cand.ee_eps_x, kappa, dHat,
-                                 self.tab, self_mu=self.friction, vert_mu=self.vert_mu)
-        (sel,), (cnt,) = compact(fr["lam"] > 0.0)
-        self.host_syncs += 1
-        out = {k: v[sel] for k, v in fr.items()}
-        out["count"] = cnt
-        out["vert_sum"] = make_dynamic_gather_sum(out["vids"].reshape(-1),
-                                                  int(self.mesh.x_rest.shape[0]))
-        self.host_syncs += out["vert_sum"].host_syncs
-        return out
+        with span("pairs"):
+            fr = SC.capture_friction(x, cand.pt_vids, cand.ee_vids, cand.ee_eps_x, kappa,
+                                     dHat, self.tab, self_mu=self.friction,
+                                     vert_mu=self.vert_mu)
+            (sel,), (cnt,) = compact(fr["lam"] > 0.0)
+            out = {k: v[sel] for k, v in fr.items()}
+            out["count"] = cnt
+            out["vert_sum"] = make_dynamic_gather_sum(out["vids"].reshape(-1),
+                                                      int(self.mesh.x_rest.shape[0]))
+            return out
 
     # -- CCD and the intersection check --------------------------------------
 
@@ -349,20 +358,23 @@ class SelfContact:
         candidates' sweep must cover dx. With ccd_method "ti" each pair's
         step is the larger of the interval CCD's (minimum separation
         gap_frac * d0) and ACCD's."""
-        a = torch.ones((), dtype=x.dtype, device=x.device)
-        for vids, accd, ti, dist2 in (
-                (cand.pt_vids, accd_pt, ti_pt, point_triangle_dist2),
-                (cand.ee_vids, accd_ee, ti_ee, edge_edge_dist2)):
-            if not vids.shape[0]:
-                continue
-            x4, p4 = x[vids], dx[vids]
-            t = accd(x4, p4, gap_frac, max_iter)
-            if self.ccd_method == "ti":
-                d0 = torch.sqrt(torch.clamp(
-                    dist2(x4[:, 0], x4[:, 1], x4[:, 2], x4[:, 3]), min=0.0))
-                t = torch.maximum(ti(x4, p4, 1.0, gap_frac * d0, max_iter), t)
-            a = torch.minimum(a, t.amin())
-        return spmd.all_min(a)
+        with span("ccd"):
+            a = torch.ones((), dtype=x.dtype, device=x.device)
+            for vids, accd, ti, dist2 in (
+                    (cand.pt_vids, accd_pt, ti_pt, point_triangle_dist2),
+                    (cand.ee_vids, accd_ee, ti_ee, edge_edge_dist2)):
+                if not vids.shape[0]:
+                    continue
+                x4, p4 = x[vids], dx[vids]
+                with span(accd.__name__):
+                    t = accd(x4, p4, gap_frac, max_iter)
+                if self.ccd_method == "ti":
+                    with span(ti.__name__):
+                        d0 = torch.sqrt(torch.clamp(
+                            dist2(x4[:, 0], x4[:, 1], x4[:, 2], x4[:, 3]), min=0.0))
+                        t = torch.maximum(ti(x4, p4, 1.0, gap_frac * d0, max_iter), t)
+                a = torch.minimum(a, t.amin())
+            return spmd.all_min(a)
 
     def intersects_pairs(self, x, pairs):
         """0-d bool: any of the (edge, tri) pairs properly intersects (on
@@ -378,15 +390,14 @@ class SelfContact:
         mesh = self.mesh
         dbc, big = self._mask_and_big(dbc_free)
         sharded = spmd.active_group() is not None
-        if self.broadphase == "grid":
-            shard = (spmd.rank(), spmd.world()) if sharded and big is None else None
-            pairs, n, syncs = SH.et_candidates(x, mesh.surf_edges, mesh.surf_tris,
-                                               dbc_mask=dbc, big=big, shard=shard)
-            sharded = sharded and shard is None
-            self.host_syncs += syncs
-        else:
-            pairs, n = BP.et_candidates(x, mesh.surf_edges, mesh.surf_tris, dbc_mask=dbc)
-            self.host_syncs += 1
-        if sharded:
-            pairs, n = self._rank_share(pairs)
+        with span("broadphase"):
+            if self.broadphase == "grid":
+                shard = (spmd.rank(), spmd.world()) if sharded and big is None else None
+                pairs, n = SH.et_candidates(x, mesh.surf_edges, mesh.surf_tris, dbc_mask=dbc,
+                                            big=big, shard=shard)
+                sharded = sharded and shard is None
+            else:
+                pairs, n = BP.et_candidates(x, mesh.surf_edges, mesh.surf_tris, dbc_mask=dbc)
+            if sharded:
+                pairs, n = self._rank_share(pairs)
         return self.intersects_pairs(x, pairs), n

@@ -26,9 +26,11 @@ design instead:
      (broadphase.reach_ok) — the dense path's arithmetic, bit for bit.
 
 Boxes with non-finite coordinates register nowhere and query nothing, and
-they do not move the grid's origin or cell size. Host reads: one for the
-expansion sizes (and the coordinate-range check), one for the kept counts;
-one more when the expansion is split into chunks (`budget`).
+they do not move the grid's origin or cell size. Host reads (`host_read`,
+utils/observability.py): one for the expansion sizes (and the
+coordinate-range check, site "broadphase.totals"), one for the kept counts
+("broadphase.counts"); one more per family whose expansion is split into
+chunks (`budget`, "broadphase.chunks").
 
 Oversized ("big") primitives (ipc_tpu/contact/spatial_hash.py:453-910):
 one kinematic plane triangle would set the cell size until every
@@ -69,6 +71,7 @@ import torch
 
 from ipc_tpu_torch.contact import broadphase as BP
 from ipc_tpu_torch.parallel.sharding import row_range
+from ipc_tpu_torch.utils.observability import host_read
 
 __all__ = ["grid_geometry", "fused_candidates", "et_candidates"]
 
@@ -188,38 +191,35 @@ class _Family:
 
 def _chunks(fam, total):
     """Query-cell ranges [a, b) with their expanded sizes, each at most
-    BUDGET rows unless one query cell alone exceeds it. Returns the list
-    and the number of host reads it took (0 or 1)."""
+    BUDGET rows unless one query cell alone exceeds it (one host read when
+    it splits)."""
     QC = int(fam.n.shape[0])
     if total <= BUDGET:
-        return [(0, QC, total)], 0
+        return [(0, QC, total)]
     cum = torch.cumsum(fam.n, dim=0)
     cum_pad = torch.cat([torch.zeros(1, dtype=cum.dtype, device=cum.device), cum])
     marks = torch.arange(1, -(-total // BUDGET), device=cum.device,
                          dtype=torch.int64) * BUDGET
     cuts = torch.searchsorted(cum, marks, side="right")  # non-decreasing
-    cuts_h, at_h = torch.stack([cuts, cum_pad[cuts]]).tolist()
+    cuts_h, at_h = host_read("broadphase.chunks", cuts, cum_pad[cuts])
     bounds = [(0, 0)] + list(zip(cuts_h, at_h)) + [(QC, total)]
-    return [(a, b, sb - sa) for (a, sa), (b, sb) in zip(bounds, bounds[1:]) if b > a], 1
+    return [(a, b, sb - sa) for (a, sa), (b, sb) in zip(bounds, bounds[1:]) if b > a]
 
 
 def _run(families, gap, tops, swept=None):
-    """Pairs of every family: list of ((n,2) int64, n), and the host reads
-    made. swept: per family, the key tensors of its dense big sweep."""
-    totals = torch.stack([f.n.sum() for f in families] + [torch.stack(tops).amax()]).tolist()
-    syncs = 1
+    """Pairs of every family: list of ((n,2) int64, n). swept: per family,
+    the key tensors of its dense big sweep."""
+    totals = host_read("broadphase.totals", *[f.n.sum() for f in families],
+                       torch.stack(tops).amax())
     if totals[-1] >= (1 << _BITS):
         raise ValueError("broad phase: a cell coordinate exceeds the grid key's 21 bits")
     keys = []
     for i, (f, total) in enumerate(zip(families, totals[:-1])):
-        chunks, s = _chunks(f, total)
-        syncs += s
-        keys.append([f.keys(a, b, size, gap) for a, b, size in chunks if size > 0]
+        keys.append([f.keys(a, b, size, gap) for a, b, size in _chunks(f, total) if size > 0]
                     + (swept[i] if swept else []))
     counts = [[(k != _BIG).sum() for k in ks] for ks in keys]
     flat = [c for cs in counts for c in cs]
-    flat = torch.stack(flat).tolist() if flat else []
-    syncs += 1 if flat else 0
+    flat = host_read("broadphase.counts", torch.stack(flat)) if flat else []
     out = []
     i = 0
     for f, ks in zip(families, keys):
@@ -231,7 +231,7 @@ def _run(families, gap, tops, swept=None):
             parts[0] if parts else torch.zeros((0,), dtype=torch.int64, device=f.n.device))
         pairs = torch.stack([sk // f.n_t, sk % f.n_t], dim=1)
         out.append((pairs, int(pairs.shape[0])))
-    return out, syncs
+    return out
 
 
 def _pt_valid(surf_verts, surf_tris, dbc_mask):
@@ -355,10 +355,9 @@ def fused_candidates(x, surf_verts, surf_edges, surf_tris, dbc_mask, disp=None, 
     """One broad phase serving the three queries of a Newton iteration:
     one shared geometry, one triangle registry (PT and ET queries) and one
     edge registry (EE), plus the dense sweep of the `big` primitives.
-    Returns dict(pt=(pairs, n), ee=(pairs, n), et=(pairs, n),
-    host_syncs=int); with_et=False gives an empty ET set. shard = (rank,
-    world) keeps the pairs of rank's share of the query rows (module
-    docstring; not with `big`)."""
+    Returns dict(pt=(pairs, n), ee=(pairs, n), et=(pairs, n)); with_et=False
+    gives an empty ET set. shard = (rank, world) keeps the pairs of rank's
+    share of the query rows (module docstring; not with `big`)."""
     if shard is not None and big:
         raise ValueError("fused_candidates: a sharded query takes no big primitives")
     vb = BP.vert_aabbs(x, surf_verts, disp, gap)
@@ -396,16 +395,16 @@ def fused_candidates(x, surf_verts, surf_edges, surf_tris, dbc_mask, disp=None, 
                                   lambda q, t: torch.minimum(q, t) * nE + torch.maximum(q, t))
         if with_et:
             swept.append(_et_dense(eb, em, tb, tm, surf_edges, surf_tris, dbc_mask, big, gap))
-    out, syncs = _run(fams, gap, [vc.top, ec.top, tc.top], swept)
+    out = _run(fams, gap, [vc.top, ec.top, tc.top], swept)
     if not with_et:
         out.append((torch.zeros((0, 2), dtype=torch.int64, device=x.device), 0))
-    return dict(pt=out[0], ee=out[1], et=out[2], host_syncs=syncs)
+    return dict(pt=out[0], ee=out[1], et=out[2])
 
 
 def et_candidates(x, surf_edges, surf_tris, disp=None, gap=0.0, dbc_mask=None, big=None,
                   shard=None):
     """Edge-triangle pairs alone (with the dense sweep of the `big`
-    primitives): ((n,2) int64, n, host_syncs). shard = (rank, world): the
+    primitives): ((n,2) int64, n). shard = (rank, world): the
     pairs of rank's share of the edges (not with `big`)."""
     if shard is not None and big:
         raise ValueError("et_candidates: a sharded query takes no big primitives")
@@ -421,5 +420,5 @@ def et_candidates(x, surf_edges, surf_tris, disp=None, gap=0.0, dbc_mask=None, b
                   _share(int(surf_edges.shape[0]), shard))
     swept = [_et_dense(eb, em, tb, tm, surf_edges, surf_tris, dbc_mask, big, gap)] if big \
         else None
-    (res,), syncs = _run([fam], gap, [ec.top, tc.top], swept)
-    return res[0], res[1], syncs
+    (res,) = _run([fam], gap, [ec.top, tc.top], swept)
+    return res

@@ -47,7 +47,18 @@ loops. Each reads one value back to the host per iteration: the PCG
 residual test, the line search's acceptance, and the Newton convergence
 test; the AL mode flag, while an AL episode runs; the scripted prologue's
 intersection backtracking; and the self-contact sets their sizes
-(contact/pipeline.py). `step.host_syncs` counts all of them.
+(contact/pipeline.py). Every read goes through utils/observability's
+`host_read`, whose count over the step's calls is `step.host_syncs`.
+
+Spans (utils/observability.py; no-ops unless tracing is on): `step`, and
+in it `script` (the scripted prologue), `warm_start`, `kappa_init`,
+`friction_capture`, `coarse_assemble` (when lagged), one `newton` per
+iteration entered (`k=`; the converged one included) with `search_dir`,
+`step_bound`, `broadphase`, `ccd`, `active_set`, `line_search` (its
+`trial`s, `trial=`), `kappa_double` and `al_update` inside, and
+`epilogue`; each read is a `host_read` leaf. Counters: `newton.iters`
+(iterations that took a line search) and `linesearch.trials` (energy
+evaluations at trial points).
 
 The per-tet Hessian-vector product of every PCG iteration goes through
 ops/tet_hv.py: the CUDA kernel for CUDA tensors, its plain version for CPU
@@ -80,6 +91,7 @@ mesh-sequence scripts (ValueError, as in the JAX package).
 """
 
 import math
+from contextlib import nullcontext
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -91,6 +103,7 @@ from ipc_tpu_torch.parallel import spmd
 from ipc_tpu_torch.scripting import DeviceTurning, device_closures
 from ipc_tpu_torch.step_terms import build_terms
 from ipc_tpu_torch.timestepper import SimState
+from ipc_tpu_torch.utils.observability import count, host_read, host_reads, span
 
 __all__ = ["StepStats", "initial_device_aux", "make_step"]
 
@@ -200,7 +213,6 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
     ccd_gap_frac = 1.0 - p.ccd_slackness_m
     zero = torch.zeros((), dtype=dtype, device=device)
     group = spmd.active_group()
-    sharded = group is not None
     energy, e_leq, e_out = T.energy, T.e_leq, T.e_out
     feasible_alpha_local, span_clamp = T.feasible_alpha_local, T.span_clamp
 
@@ -214,9 +226,10 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
     n_hs = len(halfspaces)
     aco_kind = script.aco_kind if hs_moving else None
     need_aux = turn is not None or hs_moving
+    scripted = need_aux or disp_fn is not None  # the step has a prologue
     # moving-DBC augmented Lagrangian: every DBC vertex is pulled to its
     # full scripted destination when the clamped motion cannot complete
-    use_al = disp_fn is not None and p.mdbc_al and bool(dbc.any())
+    use_al = disp_fn is not None and p.mdbc_al and host_read("build.dbc", dbc.any())
     if use_al:
         al_verts = torch.nonzero(dbc).reshape(-1)
         al_m = mesh.mass[al_verts]
@@ -303,14 +316,15 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
         accepted, E_new, stalled) with one host read per trial."""
         E0 = energy(x, act=ls_act, **e_args)
         alpha = alpha0
-        for _ in range(max_linesearch):
-            x_try = x + alpha * dx
-            E_try = energy(x_try, act=ls_act, **e_args)
-            good = e_leq(E_try, E0)
-            if sc is not None:
-                good = good & ~sc.intersects_pairs(x_try, et_pairs)
-            good, tiny = torch.stack([good, alpha < 1e-6]).tolist()
-            counters["syncs"] += 1
+        for i in range(max_linesearch):
+            with span("trial", trial=i):
+                x_try = x + alpha * dx
+                E_try = energy(x_try, act=ls_act, **e_args)
+                count("linesearch.trials")
+                good = e_leq(E_try, E0)
+                if sc is not None:
+                    good = good & ~sc.intersects_pairs(x_try, et_pairs)
+                good, tiny = host_read("linesearch", good, alpha < 1e-6)
             if good:
                 return alpha, True, E_try, tiny
             alpha = alpha * 0.5
@@ -345,98 +359,103 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
             lastmv = zero
         al_iters = 0
         while k < max_newton:
-            if torch.is_tensor(al):
-                al = bool(al)
-                counters["syncs"] += 1
-            al_in = al
-            if al_in:
-                alw = dict(w=rho, lam=lam, target=al0["target"], verts=al_verts, m=al_m,
-                           sqrtm=al_sqrtm)
-                dbc_t, dbc_sv_t = no_dbc, no_dbc_sv  # DBC rows unprojected
-            else:
-                alw, dbc_t, dbc_sv_t = None, dbc, dbc_sv
-            # PCG warm start from the previous Newton direction
-            dx, _, pcg_iters, active_count = T.search_dir(
-                x, x_tilde, kappa, dHat, cand, fric, dx, Ainv_c, damp, fext, hsD, alw, dbc_t)
-            dist = torch.abs(dx).max()
-            alpha0 = feasible_alpha_local(x, dx, hsD, dbc_sv_t)
-            # swept-span clamp; also runs without self-contact
-            alpha1 = span_clamp(alpha0, dx)
-            clamped = alpha1 < alpha0
-            alpha0 = alpha1
-            ls_act = cand_sweep = None
-            if sc is not None:
-                # ONE swept broad phase per iteration: the PT/EE stencils
-                # of the CCD and of the next iteration, and the edge-
-                # triangle pairs of the line search's intersection check
-                cand_sweep = sc.build_candidates(x, alpha0 * dx, gap, with_et=True)
-                alpha0 = alpha0 * sc.ccd_alpha(x, alpha0 * dx, cand_sweep, ccd_gap_frac,
-                                               p.ccd_max_iter)
-                # ONE swept compaction serves E0 and every line-search trial
-                ls_act = sc.active_set(x, cand_sweep, dHat, disp=alpha0 * dx)
-                sizes = [cand.pt_count, cand.ee_count, cand_sweep.et_count, *active_count,
-                         ls_act.cnt_pt, ls_act.cnt_ee]
-                fold(local, *sizes)
-                fold(counts, *spmd.sum_ints(sizes))  # summed over ranks
-                counters["syncs"] += sharded
-            converged, was_clamped = torch.stack(
-                [dist < target_gres, clamped]).tolist()
-            counters["syncs"] += 1
-            # AL mode has its own termination; the residual test applies
-            # only once projected
-            if k > 0 and converged and not al_in:
-                break  # nothing of this iteration is taken
-            e_args = dict(x_tilde=x_tilde, kappa=kappa, dHat=dHat, fric=fric, damp=damp,
-                          fext=fext, hsD=hsD, alw=alw)
-            alpha, accepted, E_acc, stalled = line_search(
-                x, dx, alpha0, e_args, ls_act,
-                cand_sweep.et_pairs if sc is not None else None)
-            x_new = x + alpha * dx if accepted else x
-            if p.adaptive_kappa and (halfspaces or sc is not None) and accepted:
-                # postLineSearch doubling over the swept active pairs and
-                # the half-space distances
-                double = closer(x, x_new, ls_act, hsD)
-                kappa = torch.where(double, torch.clamp(kappa * 2.0, max=kappa_max), kappa)
-                n_doubles += double.to(torch.int32)
-            if al_in:
-                # the AL schedule after the accepted iterate: completion
-                # (moved > 1 - 1e-3) ends the episode; otherwise double rho
-                # on regressing progress, and near the MDBC tolerance
-                # double rho (incomplete) or update lambda (converging)
-                dxt_new = x_new[al_verts] - al0["target"]
-                moved = 1.0 - torch.sqrt((dxt_new * dxt_new).sum()) / al0["denom"]
-                finished = moved > 1.0 - 1e-3
-                if k >= 100:
-                    finished = torch.ones_like(finished)
-                apply = ~finished
-                grow_a = (moved < lastmv) & (rho < 1e8)
-                near = dist < cn_mbc
-                incomplete = (moved < 0.99) & (rho < 1e8)
-                grow_b = (~grow_a) & near & incomplete
-                upd_lam = (~grow_a) & near & ~incomplete
-                lam = torch.where(apply & upd_lam, lam - rho * al_sqrtm[:, None] * dxt_new, lam)
-                rho = torch.where(apply & (grow_a | grow_b), rho * 2.0, rho)
-                lastmv = torch.where(apply, moved, lastmv)
-                # a stalled line search also ends the episode
-                al = False if stalled else ~finished
-                al_iters += 1
-            x = x_new
-            if sc is not None:
-                cand = cand_sweep  # candidate carrying
-            k += 1
-            n_clamps += int(was_clamped)
-            alpha_out = alpha
-            energy_out = e_out(E_acc)
-            pcg_total += pcg_iters
-            if stalled and not al_in:
-                break
+            with span("newton", k=k):
+                if torch.is_tensor(al):
+                    al = host_read("newton.al", al)
+                al_in = al
+                if al_in:
+                    alw = dict(w=rho, lam=lam, target=al0["target"], verts=al_verts,
+                               m=al_m, sqrtm=al_sqrtm)
+                    dbc_t, dbc_sv_t = no_dbc, no_dbc_sv  # DBC rows unprojected
+                else:
+                    alw, dbc_t, dbc_sv_t = None, dbc, dbc_sv
+                # PCG warm start from the previous Newton direction
+                dx, _, pcg_iters, active_count = T.search_dir(
+                    x, x_tilde, kappa, dHat, cand, fric, dx, Ainv_c, damp, fext, hsD, alw,
+                    dbc_t)
+                dist = torch.abs(dx).max()
+                with span("step_bound"):
+                    alpha0 = feasible_alpha_local(x, dx, hsD, dbc_sv_t)
+                    # swept-span clamp; also runs without self-contact
+                    alpha1 = span_clamp(alpha0, dx)
+                    clamped = alpha1 < alpha0
+                alpha0 = alpha1
+                ls_act = cand_sweep = None
+                if sc is not None:
+                    # ONE swept broad phase per iteration: the PT/EE
+                    # stencils of the CCD and of the next iteration, and the
+                    # edge-triangle pairs of the line search's intersection
+                    # check
+                    cand_sweep = sc.build_candidates(x, alpha0 * dx, gap, with_et=True)
+                    alpha0 = alpha0 * sc.ccd_alpha(x, alpha0 * dx, cand_sweep, ccd_gap_frac,
+                                                   p.ccd_max_iter)
+                    # ONE swept compaction serves E0 and every line-search
+                    # trial
+                    ls_act = sc.active_set(x, cand_sweep, dHat, disp=alpha0 * dx)
+                    sizes = [cand.pt_count, cand.ee_count, cand_sweep.et_count,
+                             *active_count, ls_act.cnt_pt, ls_act.cnt_ee]
+                    fold(local, *sizes)
+                    fold(counts, *spmd.sum_ints(sizes))  # summed over ranks
+                converged, was_clamped = host_read("newton.converged", dist < target_gres,
+                                                   clamped)
+                # AL mode has its own termination; the residual test
+                # applies only once projected
+                if k > 0 and converged and not al_in:
+                    break  # nothing of this iteration is taken
+                e_args = dict(x_tilde=x_tilde, kappa=kappa, dHat=dHat, fric=fric, damp=damp,
+                              fext=fext, hsD=hsD, alw=alw)
+                with span("line_search"):
+                    alpha, accepted, E_acc, stalled = line_search(
+                        x, dx, alpha0, e_args, ls_act,
+                        cand_sweep.et_pairs if sc is not None else None)
+                x_new = x + alpha * dx if accepted else x
+                if p.adaptive_kappa and (halfspaces or sc is not None) and accepted:
+                    # postLineSearch doubling over the swept active pairs
+                    # and the half-space distances
+                    with span("kappa_double"):
+                        double = closer(x, x_new, ls_act, hsD)
+                        kappa = torch.where(double, torch.clamp(kappa * 2.0, max=kappa_max),
+                                            kappa)
+                        n_doubles += double.to(torch.int32)
+                if al_in:
+                    # the AL schedule after the accepted iterate: completion
+                    # (moved > 1 - 1e-3) ends the episode; otherwise double
+                    # rho on regressing progress, and near the MDBC
+                    # tolerance double rho (incomplete) or update lambda
+                    # (converging)
+                    with span("al_update"):
+                        dxt_new = x_new[al_verts] - al0["target"]
+                        moved = 1.0 - torch.sqrt((dxt_new * dxt_new).sum()) / al0["denom"]
+                        finished = moved > 1.0 - 1e-3
+                        if k >= 100:
+                            finished = torch.ones_like(finished)
+                        apply = ~finished
+                        grow_a = (moved < lastmv) & (rho < 1e8)
+                        near = dist < cn_mbc
+                        incomplete = (moved < 0.99) & (rho < 1e8)
+                        grow_b = (~grow_a) & near & incomplete
+                        upd_lam = (~grow_a) & near & ~incomplete
+                        lam = torch.where(apply & upd_lam,
+                                          lam - rho * al_sqrtm[:, None] * dxt_new, lam)
+                        rho = torch.where(apply & (grow_a | grow_b), rho * 2.0, rho)
+                        lastmv = torch.where(apply, moved, lastmv)
+                    # a stalled line search also ends the episode
+                    al = False if stalled else ~finished
+                    al_iters += 1
+                x = x_new
+                if sc is not None:
+                    cand = cand_sweep  # candidate carrying
+                k += 1
+                count("newton.iters")
+                n_clamps += int(was_clamped)
+                alpha_out = alpha
+                energy_out = e_out(E_acc)
+                pcg_total += pcg_iters
+                if stalled and not al_in:
+                    break
         return dict(x=x, k=k, kappa=kappa, n_doubles=n_doubles, dist=dist,
                     alpha=alpha_out, energy=energy_out, pcg_total=pcg_total,
                     n_clamps=n_clamps, counts=counts, local=local, al_iters=al_iters)
-
-    def other_syncs():
-        n = T.coarse_assemble.host_syncs if T.coarse_assemble is not None else 0
-        return n + (sc.host_syncs if sc is not None else 0)
 
     def scripted_motion(state, gfac, hfac):
         """The prologue's scripted DBC move: (state moved by script_scale *
@@ -455,8 +474,7 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
             ok = False
             while True:
                 hit = sc.intersects_pairs(x_s + scale * disp, cand_s.et_pairs)
-                big, hit = torch.stack([scale > 1e-6, hit]).tolist()
-                counters["syncs"] += 1
+                big, hit = host_read("script.backtrack", scale > 1e-6, hit)
                 if not big:
                     break
                 if not hit:
@@ -478,56 +496,67 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
     def step(state: SimState):
         if spmd.active_group() is not group:
             raise RuntimeError("the step runs under the process group it was built under")
-        syncs0 = other_syncs()
-        coll0 = spmd.collectives()
         if need_aux and not isinstance(state.aux, dict):
             raise ValueError(
                 "this scene carries device-script state (turning rules / moving "
                 "planes): initialize SimState.aux with jit_step.initial_device_aux("
                 "stepper) before stepping")
+        reads0 = host_reads()
+        coll0 = spmd.collectives()
+        with span("step"):
+            new_state, stats = advance(state)
+        step.operator_applications = counters["operator"]
+        step.host_syncs += host_reads() - reads0
+        step.collectives += spmd.collectives() - coll0
+        return new_state, stats
+
+    def advance(state):
         aux_out = dict(state.aux) if isinstance(state.aux, dict) else None
-        gfac = hfac = None
-        if turn is not None:
-            tsign, tact = turn.update(state.x, state.aux["turn_sign"],
-                                      state.aux["turn_active"])
-            aux_out["turn_sign"], aux_out["turn_active"] = tsign, tact
-            gfac, hfac = turn.gfac(tsign), turn.hfac(tsign)
         hsD = hs_veldt = None
-        if hs_moving:
-            orig, avel, hsD, veldt = aco_update(state.x[sv], state.aux["hs_origin"],
-                                                state.aux["aco_vel"])
-            aux_out["hs_origin"], aux_out["aco_vel"] = orig, avel
-            if aco_kind == "squashshear":
-                hs_veldt = [veldt[i] for i in range(n_hs)]
         script_scale = torch.ones((), dtype=dtype, device=device)
         al0 = None
-        if disp_fn is not None:
-            state, script_scale, al0 = scripted_motion(state, gfac, hfac)
+        with span("script") if scripted else nullcontext():
+            gfac = hfac = None
+            if turn is not None:
+                tsign, tact = turn.update(state.x, state.aux["turn_sign"],
+                                          state.aux["turn_active"])
+                aux_out["turn_sign"], aux_out["turn_active"] = tsign, tact
+                gfac, hfac = turn.gfac(tsign), turn.hfac(tsign)
+            if hs_moving:
+                orig, avel, hsD, veldt = aco_update(state.x[sv], state.aux["hs_origin"],
+                                                    state.aux["aco_vel"])
+                aux_out["hs_origin"], aux_out["aco_vel"] = orig, avel
+                if aco_kind == "squashshear":
+                    hs_veldt = [veldt[i] for i in range(n_hs)]
+            if disp_fn is not None:
+                state, script_scale, al0 = scripted_motion(state, gfac, hfac)
         fext = fext_fn(state.t) if fext_fn is not None else None
-        x_tilde = x_tilde_of(state)
-        if al0 is not None:
-            # AL mode frees the DBC rows: their inertia target is the last
-            # committed position
-            x_tilde = torch.where(dbc[:, None] & al0["blocked"], state.x_prev, x_tilde)
-        x0 = state.x
-        # warm start: feasibility-filtered inertia predictor; with self-
-        # contact ONE swept broad phase serves its CCD and Newton
-        # iteration 0
-        dx0 = masked(dbc[:, None], x_tilde - x0)
-        a0 = feasible_alpha_local(x0, dx0, hsD)
-        cand0 = None
-        if sc is not None:
-            cand0 = sc.build_candidates(x0, a0 * dx0, gap, with_et=False)
-            a0 = a0 * sc.ccd_alpha(x0, a0 * dx0, cand0, ccd_gap_frac, p.ccd_max_iter)
-        x0 = x0 + a0 * dx0
-        if p.adaptive_kappa:
-            kappa = init_kappa(x0, x_tilde, cand0, hsD)
-        else:
-            kappa = torch.tensor(min(p.kappa, kappa_max) if p.kappa > 0 else kappa_sug,
-                                 dtype=dtype, device=device)
-        # the jit path runs no fricDHat homotopy: target smoothing
-        fric = T.capture_friction(x0, state.x_prev, kappa, dHat, cand0, hsD, hs_veldt,
-                                  stepper.fric_dhat_target)
+        with span("warm_start"):
+            x_tilde = x_tilde_of(state)
+            if al0 is not None:
+                # AL mode frees the DBC rows: their inertia target is the
+                # last committed position
+                x_tilde = torch.where(dbc[:, None] & al0["blocked"], state.x_prev, x_tilde)
+            x0 = state.x
+            # feasibility-filtered inertia predictor; with self-contact ONE
+            # swept broad phase serves its CCD and Newton iteration 0
+            dx0 = masked(dbc[:, None], x_tilde - x0)
+            a0 = feasible_alpha_local(x0, dx0, hsD)
+            cand0 = None
+            if sc is not None:
+                cand0 = sc.build_candidates(x0, a0 * dx0, gap, with_et=False)
+                a0 = a0 * sc.ccd_alpha(x0, a0 * dx0, cand0, ccd_gap_frac, p.ccd_max_iter)
+            x0 = x0 + a0 * dx0
+        with span("kappa_init"):
+            if p.adaptive_kappa:
+                kappa = init_kappa(x0, x_tilde, cand0, hsD)
+            else:
+                kappa = torch.tensor(min(p.kappa, kappa_max) if p.kappa > 0 else kappa_sug,
+                                     dtype=dtype, device=device)
+        with span("friction_capture"):
+            # the jit path runs no fricDHat homotopy: target smoothing
+            fric = T.capture_friction(x0, state.x_prev, kappa, dHat, cand0, hsD, hs_veldt,
+                                      stepper.fric_dhat_target)
         damp = None
         if p.damping_stiff > 0.0:
             # lagged Rayleigh damping: the SPD elasticity blocks at x_prev
@@ -537,30 +566,30 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
                    if T.lag_coarse else None)
         out = newton_solve(x0, x_tilde, kappa, fric, cand0, Ainv_c0, damp, fext, hsD, al0)
 
-        x = out["x"]
-        if is_nm:
-            # the predictor x_tilde of this step (the JAX epilogue reads the
-            # same quantity under a name its scope does not bind)
-            beta, gamma = p.nm_beta, p.nm_gamma
-            v = state.v + dt * (1.0 - gamma) * state.a
-            a = (x - x_tilde) / (dtSq * beta) + gravity[None, :]
-            v = v + dt * gamma * a
-        else:
-            v = (x - state.x_prev) / dt
-            a = (v - state.v) / dt
-        new_state = replace(state, x=x, x_prev=x, v=v, a=a, t=state.t + dt,
-                            step=state.step + 1, aux=aux_out)
-        kappa_f, n_doubles, dist, alpha, E, scale_f = torch.stack([
-            out["kappa"].to(torch.float64),
-            torch.as_tensor(out["n_doubles"], device=device).to(torch.float64),
-            out["dist"].to(torch.float64), out["alpha"].to(torch.float64),
-            out["energy"].to(torch.float64), script_scale.to(torch.float64)]).tolist()
-        counters["syncs"] += 1 + other_syncs() - syncs0
-        c = out["counts"]
-        fr_sc = fric.get("sc") if fric is not None else None
-        step.rank_counts = dict(out["local"], fric=fr_sc["count"] if fr_sc is not None else 0)
-        (fric_count,) = spmd.sum_ints([step.rank_counts["fric"]])
-        counters["syncs"] += sharded
+        with span("epilogue"):
+            x = out["x"]
+            if is_nm:
+                # the predictor x_tilde of this step (the JAX epilogue reads
+                # the same quantity under a name its scope does not bind)
+                beta, gamma = p.nm_beta, p.nm_gamma
+                v = state.v + dt * (1.0 - gamma) * state.a
+                a = (x - x_tilde) / (dtSq * beta) + gravity[None, :]
+                v = v + dt * gamma * a
+            else:
+                v = (x - state.x_prev) / dt
+                a = (v - state.v) / dt
+            new_state = replace(state, x=x, x_prev=x, v=v, a=a, t=state.t + dt,
+                                step=state.step + 1, aux=aux_out)
+            kappa_f, n_doubles, dist, alpha, E, scale_f = host_read("epilogue", torch.stack([
+                out["kappa"].to(torch.float64),
+                torch.as_tensor(out["n_doubles"], device=device).to(torch.float64),
+                out["dist"].to(torch.float64), out["alpha"].to(torch.float64),
+                out["energy"].to(torch.float64), script_scale.to(torch.float64)]))
+            c = out["counts"]
+            fr_sc = fric.get("sc") if fric is not None else None
+            step.rank_counts = dict(out["local"],
+                                    fric=fr_sc["count"] if fr_sc is not None else 0)
+            (fric_count,) = spmd.sum_ints([step.rank_counts["fric"]])
         stats = StepStats(
             newton_iters=out["k"], kappa=kappa_f, kappa_doublings=int(n_doubles),
             dist_to_opt=dist, pt_count=c["pt"], ee_count=c["ee"], et_count=c["et"],
@@ -569,9 +598,6 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
             bucket_overflow=0, fric_count=fric_count,
             al_iters=out["al_iters"], sweep_clamps=out["n_clamps"],
         )
-        step.operator_applications = counters["operator"]
-        step.host_syncs = counters["syncs"]
-        step.collectives += spmd.collectives() - coll0
         return new_state, stats
 
     step.operator_applications = 0

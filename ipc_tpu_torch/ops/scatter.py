@@ -27,6 +27,8 @@ float atomics, which the port does not use.
 import numpy as np
 import torch
 
+from ipc_tpu_torch.utils.observability import host_read
+
 __all__ = ["gather_table", "make_gather_sum", "make_dynamic_gather_sum"]
 
 
@@ -75,8 +77,8 @@ def make_dynamic_gather_sum(ids, n_out):
     table covers only the ids that occur (`apply.rows`, ascending, unique):
     rows no id touches are exact zeros, written with an `index_copy` over
     unique rows. Building it reads two numbers back to the host in one sync
-    (row count, largest multiplicity): `apply.host_syncs` is 1, or 0 for
-    an empty set."""
+    (row count, largest multiplicity; `host_read` site "gather_sum.table"):
+    `apply.host_syncs` is 1, or 0 for an empty set."""
     device = ids.device
     N = int(ids.shape[0])
     if N == 0:
@@ -94,7 +96,7 @@ def make_dynamic_gather_sum(ids, n_out):
     seg = torch.cumsum(is_start.to(torch.int64), dim=0) - 1  # segment per position
     first = torch.cummax(torch.where(is_start, pos, torch.zeros_like(pos)), dim=0).values
     rank = pos - first
-    n_rows, D = torch.stack([seg[-1] + 1, rank.max() + 1]).tolist()  # the host read
+    n_rows, D = host_read("gather_sum.table", seg[-1] + 1, rank.max() + 1)
     rows = sorted_ids[torch.searchsorted(seg, torch.arange(n_rows, device=device))]
     table = torch.full((n_rows, D), N, dtype=torch.int64, device=device)
     table[seg, rank] = order  # (seg, rank) pairs are unique

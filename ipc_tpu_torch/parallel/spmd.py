@@ -33,6 +33,8 @@ same operations in the same order, bit for bit.
 
 import torch
 
+from ipc_tpu_torch.utils.observability import host_read
+
 __all__ = ["activate", "deactivate", "active_group", "rank", "world", "owner",
            "all_sum", "df_all_sum", "all_min", "all_any", "sum_ints", "collectives"]
 
@@ -138,4 +140,4 @@ def sum_ints(vals):
     if _CTX["group"] is None:
         return list(vals)
     buf = torch.as_tensor(list(vals), dtype=torch.int64, device=_CTX["device"])
-    return [int(v) for v in _all_reduce(buf).tolist()]
+    return [int(v) for v in host_read("spmd.sum_ints", _all_reduce(buf))]

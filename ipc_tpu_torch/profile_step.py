@@ -1,4 +1,4 @@
-"""Per-layer wall times of a time step on one GPU.
+"""Per-layer wall times of a time step on one GPU, from the program's spans.
 
     python -m ipc_tpu_torch.profile_step [--scene boxes|twist] [--n-cells 20]
         [--dtype float32] [--settle 8] [--steps 3] [--no-contact]
@@ -14,126 +14,34 @@ so each run does the same work):
 
   1. plain: wall seconds per step, Newton/PCG iterations (the host path's
      Newton iterations: its search directions), host syncs;
-  2. layers: a `torch.cuda.synchronize()` around every call of each layer
-     below, summed per layer (inclusive: an indented layer also counts in
-     the one it is called from; the syncs inflate the total);
-  3. trace: `torch.profiler` over the last of those steps alone: CUDA
-     kernel time summed against that step's plain wall time (the device's
-     busy share), kernel count, and the kernels that take the most time.
+  2. layers: the same steps with the program's tracing on
+     (utils/observability.py, which adds no sync): per span name its
+     calls and inclusive seconds (a span nested in one of the same name
+     counted once; the host's time in that layer, the device work it
+     queued paid at the next host read), the `host_read` waits by site,
+     the counters, the share of each step its top-level and Newton spans
+     cover, and the wall against the plain pass's (tracing's cost);
+  3. trace: `torch.profiler` over the last of those steps alone, tracing
+     on: CUDA kernel time (the spans' annotation ranges left out) against
+     that step's plain wall time (the device's busy share), kernel count,
+     the kernels that take the most time, the device's idle time by the
+     innermost span the host was in, and the share of it inside
+     `host_read` spans (small when the spans and the kernels share one
+     clock: the host waits while the device works).
 
-The timers replace functions of the port's modules for the life of the
-process, so run this as its own process. Needs a CUDA device.
+Needs a CUDA device.
 """
 
 import argparse
+import bisect
 import time
 from collections import defaultdict
 
 import torch
 
+from ipc_tpu_torch.utils import observability as obs
+
 __all__ = ["main"]
-
-
-class _Timers:
-    """Synchronized wall-time sums per label, taken only while `on`."""
-
-    def __init__(self):
-        self.on = False
-        self.acc = defaultdict(lambda: [0, 0.0])
-
-    def wrap(self, label, fn):
-        def timed(*args, **kwargs):
-            if not self.on:
-                return fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            self.acc[label][0] += 1
-            self.acc[label][1] += time.perf_counter() - t0
-            return out
-
-        return timed
-
-    def install(self, owner, attr, label):
-        setattr(owner, attr, self.wrap(label, getattr(owner, attr)))
-
-
-class _Assemble:
-    """A timed coarse `assemble` that still shows the original's host_syncs."""
-
-    def __init__(self, fn, timed):
-        self.fn, self.timed = fn, timed
-
-    def __call__(self, *args, **kwargs):
-        return self.timed(*args, **kwargs)
-
-    @property
-    def host_syncs(self):
-        return self.fn.host_syncs
-
-
-def _install(timers, stepper, host):
-    from ipc_tpu_torch import jit_step as JS
-    from ipc_tpu_torch import step_terms as ST
-    from ipc_tpu_torch.contact import pipeline as PL
-    from ipc_tpu_torch.energy import elasticity as EL
-    from ipc_tpu_torch.ops import compensated as CO
-
-    targets = [
-        (EL, "elasticity_hessian_blocks", "elasticity 12x12 blocks"),
-        (EL, "elasticity_gradient", "elasticity gradient"),
-        (EL, "elasticity_energy_per_elem", "elasticity energy"),
-        (EL, "filter_step_size", "inversion step bound"),
-        (ST, "pcg", "PCG solves (operator + preconditioner)"),
-        (ST, "tet_hv", "  tet_hv (in PCG)"),
-        (CO, "df_sum", "compensated sums (energies)"),
-        (stepper, "_friction_energy", "friction energy"),
-        (stepper, "_friction_gradient", "friction gradient"),
-        (stepper, "_friction_hessians", "friction blocks"),
-    ]
-    if host:
-        targets += [
-            (stepper, "_sweep_clamp", "swept-span clamp (host read)"),
-            (stepper, "_all_dist2", "kappa-doubling distances (host read)"),
-            (stepper, "init_kappa", "kappa init"),
-        ]
-    if stepper.script is not None:
-        closures = JS.device_closures
-
-        def closures_timed(*args, **kwargs):
-            disp_fn, fext_fn, turn = closures(*args, **kwargs)
-            if disp_fn is not None:
-                disp_fn = timers.wrap("scripted displacement (disp_fn)", disp_fn)
-            return disp_fn, fext_fn, turn
-
-        JS.device_closures = closures_timed
-    sc = stepper.sc
-    if sc is not None:
-        targets += [
-            (sc, "build_candidates", "broad phase (build_candidates)"),
-            (sc, "ccd_alpha", f"CCD ({sc.ccd_method})"),
-            (sc, "active_set", "active-set compaction"),
-            (sc, "hessian_blocks_from_active", "pair Hessians + PSD"),
-            (PL, "make_psd", "  PSD projection (in pair Hessians)"),
-            (sc, "gradient_active", "barrier gradient"),
-            (sc, "energy_active", "barrier energy (line search)"),
-            (sc, "intersects_pairs", "intersection test (line search)"),
-            (sc, "capture_friction", "friction capture"),
-            (sc, "vert_sum", "active-set gather-sum tables"),
-        ]
-        if host:
-            targets.append((sc, "has_intersection", "intersection test (fresh ET broad phase)"))
-    for owner, attr, label in targets:
-        timers.install(owner, attr, label)
-    make = ST.make_coarse_assembler
-
-    def make_timed(*args, **kwargs):
-        assemble, term = make(*args, **kwargs)
-        return (_Assemble(assemble, timers.wrap("coarse assembly", assemble)),
-                timers.wrap("coarse correction (in PCG)", term))
-
-    ST.make_coarse_assembler = make_timed
 
 
 def _run(step, counts, state, n, host):
@@ -155,6 +63,60 @@ def _run(step, counts, state, n, host):
                      f"kappa_doublings={s.kappa_doublings} script_scale={s.script_scale:.4g}")
         rows.append((time.perf_counter() - t0, k, it, counts.host_syncs - syncs, act, extra))
     return state, rows
+
+
+def _kernels(prof, skip):
+    """(name, start ns, end ns) of the CUDA events of a finished profiler
+    run, read from its raw kineto results, leaving out the annotation
+    ranges named in `skip` (record_function ranges show on the device
+    too)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda and e.name() not in skip and e.duration_ns() > 0:
+            out.append((e.name(), e.start_ns(), e.start_ns() + e.duration_ns()))
+    return out
+
+
+def _idle_by_span(kernels, spans, t0, t1):
+    """The device's idle gaps in [t0, t1] (outside the union of the kernel
+    intervals): ({innermost span covering a gap's midpoint: seconds},
+    idle seconds, idle seconds inside `host_read` spans)."""
+    busy = []
+    for _, s, e in sorted(kernels, key=lambda k: k[1]):
+        if busy and s <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], e)
+        else:
+            busy.append([s, e])
+    gaps, prev = [], t0
+    for s, e in busy + [[t1, t1]]:
+        if min(s, t1) > prev:
+            gaps.append((prev, min(s, t1)))
+        prev = max(prev, e)
+    # the host's spans nest: sweep the gaps' midpoints through their
+    # boundaries with a stack of the open spans
+    bounds = sorted([(sp.start_ns, 1, sp.id) for sp in spans]
+                    + [(sp.end_ns, 0, sp.id) for sp in spans])
+    names = {sp.id: sp.name for sp in spans}
+    reads = sorted((sp.start_ns, sp.end_ns) for sp in spans if sp.name == "host_read")
+    starts = [r[0] for r in reads]
+    idle, in_reads, stack, i = defaultdict(float), 0.0, [], 0
+    for a, b in gaps:
+        mid = 0.5 * (a + b)
+        while i < len(bounds) and bounds[i][0] <= mid:
+            _, opens, sid = bounds[i]
+            if opens:
+                stack.append(sid)
+            elif sid in stack:
+                stack.remove(sid)
+            i += 1
+        idle[names[stack[-1]] if stack else "(no span)"] += (b - a) / 1e9
+        j = bisect.bisect_right(starts, b) - 1
+        while j >= 0 and reads[j][1] > a:
+            lo, hi = max(a, reads[j][0]), min(b, reads[j][1])
+            in_reads += max(0, hi - lo) / 1e9
+            j -= 1
+    return dict(idle), sum(b - a for a, b in gaps) / 1e9, in_reads
 
 
 def main(argv=None):
@@ -181,8 +143,6 @@ def main(argv=None):
     else:
         st = build_scene(args.n_cells, args.dtype, device, with_contact=not args.no_contact)
     host = args.stepper == "host"
-    timers = _Timers()
-    _install(timers, st, host)
     step = st.step if host else JS.make_step(st)
     counts = st if host else step
     start, _ = _run(step, counts, st.initial_state(), args.settle, host)
@@ -196,30 +156,45 @@ def main(argv=None):
     print(f"[profile] plain: {wall:.4f} s for {args.steps} steps, {newton} Newton "
           f"iterations, {wall / max(newton, 1):.4f} s per iteration")
 
-    timers.on = True
-    _, synced = _run(step, counts, start, args.steps, host)
-    timers.on = False
-    total = sum(r[0] for r in synced)
-    print(f"[profile] synced layers over the same {args.steps} steps: {total:.4f} s")
-    for label, (calls, sec) in sorted(timers.acc.items(), key=lambda kv: -kv[1][1]):
-        print(f"[profile] layer | {label} | calls={calls} | s={sec:.4f} | "
-              f"share={100.0 * sec / total:.1f}%")
+    obs.set_tracing(True)
+    _, traced = _run(step, counts, start, args.steps, host)
+    obs.set_tracing(False)
+    rec = obs.collect()
+    total = sum(r[0] for r in traced)
+    print(f"[profile] spans over the same {args.steps} steps: {total:.4f} s with tracing on "
+          f"({100.0 * (total / wall - 1.0):+.2f}% against plain); counters {rec['counters']}; "
+          f"step coverage {[round(c, 4) for c in obs.step_coverage(rec['spans'])]}")
+    for name, (calls, ns) in sorted(obs.span_totals(rec["spans"]).items(),
+                                    key=lambda kv: -kv[1][1]):
+        print(f"[profile] span | {name} | calls={calls} | s={ns / 1e9:.4f} | "
+              f"share={100.0 * ns / 1e9 / total:.1f}%")
 
     last, _ = _run(step, counts, start, args.steps - 1, host)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    obs.set_tracing(True)
     with torch.profiler.profile(activities=acts) as prof:
         step(last)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    obs.set_tracing(False)
+    spans = obs.collect()["spans"]
+    kernels = _kernels(prof, {sp.name for sp in spans})
+    sums = defaultdict(lambda: [0, 0.0])
+    for name, s0, s1 in kernels:
+        sums[name][0] += 1
+        sums[name][1] += (s1 - s0) / 1e9
+    t0 = min(sp.start_ns for sp in spans)
+    t1 = max(sp.end_ns for sp in spans)
+    idle, idle_s, in_reads = _idle_by_span(kernels, spans, t0, t1)
+    busy = (t1 - t0) / 1e9 - idle_s
     w_last = plain[-1][0]
-    print(f"[profile] trace of step {args.settle + args.steps - 1}: kernel time {busy:.4f} s "
-          f"over {sum(e.count for e in kernels)} kernels; plain wall {w_last:.4f} s: "
-          f"busy {100.0 * busy / w_last:.1f}%")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[profile] kernel | {e.key[:90]} | count={e.count} | "
-              f"s={e.self_device_time_total / 1e6:.4f}")
+    print(f"[profile] trace of step {args.settle + args.steps - 1}: kernel union {busy:.4f} s "
+          f"over {len(kernels)} kernels; plain wall {w_last:.4f} s: busy "
+          f"{100.0 * busy / w_last:.1f}%; idle under the profiler {idle_s:.4f} s, "
+          f"{100.0 * in_reads / max(idle_s, 1e-12):.2f}% of it inside host_read spans")
+    for name, sec in sorted(idle.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"[profile] idle | {name} | s={sec:.4f}")
+    for name, (n, sec) in sorted(sums.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"[profile] kernel | {name[:90]} | count={n} | s={sec:.4f}")
 
 
 if __name__ == "__main__":

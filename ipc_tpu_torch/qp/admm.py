@@ -36,6 +36,7 @@ import torch
 
 from ipc_tpu_torch.ops.scatter import make_dynamic_gather_sum
 from ipc_tpu_torch.solver.pcg import CapturedBody, GraphedPCG
+from ipc_tpu_torch.utils.observability import host_read
 
 __all__ = ["admm_qp"]
 
@@ -121,7 +122,7 @@ def admm_qp(P_apply, q, A_rows, A_vids, A_valid, l, precond=None, rho=1e5, sigma
         post.replay()
         k += 1
         counters["syncs"] += 1
-        if bool(done):
+        if host_read("admm.done", done):
             break
     # lambda >= 0 multipliers of Ax >= l (OSQP's y is their negative)
     lam = torch.clamp(-y, min=0.0)

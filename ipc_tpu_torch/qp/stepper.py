@@ -30,9 +30,9 @@ The active set is a dict in insertion order (half-space rows by plane,
 then surface vertex; PT then EE pairs in candidate order); the QP's rows
 are its pairs in that order, then its half-space rows. The JAX package
 pads them to a capacity that grows on overflow (`cap_active`); the port's
-rows are exact-size. Host reads count in `host_syncs`, operator
-applications in `operator_applications`, and the PCG iterations inside
-ADMM in `pcg_iterations`. `StepStats.pcg_iters` holds the ADMM iteration
+rows are exact-size. Host reads (utils/observability's `host_read`) count
+in `host_syncs`, operator applications in `operator_applications`, and
+the PCG iterations inside ADMM in `pcg_iterations`. `StepStats.pcg_iters` holds the ADMM iteration
 count of each outer iteration, as in the JAX package.
 """
 
@@ -48,6 +48,7 @@ from ipc_tpu_torch.qp.admm import admm_qp
 from ipc_tpu_torch.qp.constraints import FAMILY_OF_TYPE, constraint_c_grad
 from ipc_tpu_torch.solver.pcg import apply_block_precond, block_jacobi_inverse
 from ipc_tpu_torch.timestepper import IPCStepper, SimState, StepStats
+from ipc_tpu_torch.utils.observability import host_reads
 
 __all__ = ["QPStepper"]
 
@@ -216,7 +217,7 @@ class QPStepper(IPCStepper):
         if spmd.active_group() is not None:
             raise NotImplementedError("QPStepper.step does not run sharded")
         mesh = self.mesh
-        syncs0 = self._other_syncs()
+        reads0 = host_reads()
         stats = StepStats()
         x_start = state.x
         x_tilde = self.compute_x_tilde(state)
@@ -244,7 +245,6 @@ class QPStepper(IPCStepper):
             K = int(all_c.shape[0])
             # A^T's fixed-order gather-sum, for ADMM and the KKT gradient
             vert_sum = make_dynamic_gather_sum(all_vids.reshape(-1), x.shape[0])
-            self._counters["syncs"] += vert_sum.host_syncs
             dx, lam, admm_iters = admm_qp(
                 P_apply, g, all_rows, all_vids,
                 torch.ones((K,), dtype=torch.bool, device=self.device),
@@ -279,7 +279,7 @@ class QPStepper(IPCStepper):
                     self.mode == "QP" or fb_norm <= self.fb_tol):
                 break
 
-        self._counters["syncs"] += self._other_syncs() - syncs0
+        self._host_syncs += host_reads() - reads0
         v_new = (x - state.x_prev) / self.dt
         a_new = (v_new - state.v) / self.dt
         return (SimState(x=x, x_prev=x, v=v_new, a=a_new, t=state.t + self.dt,

@@ -2,7 +2,8 @@
 
 Port of ipc_tpu/solver/pcg.py:30-94. The `lax.while_loop` becomes a Python
 loop: each iteration reads the squared residual back to the host once to
-test termination (the one host sync per PCG iteration). `pcg_start` is
+test termination (the one host sync per PCG iteration, `host_read` site
+"pcg.residual", utils/observability.py). `pcg_start` is
 the set-up and `pcg_iteration` one iteration; `pcg` loops over them.
 
 `GraphedPCG` runs the same two functions on static buffers, for an
@@ -23,6 +24,7 @@ number of iterations; no collective sits in the loop itself.
 import torch
 
 from ipc_tpu_torch.ops import launch_counts
+from ipc_tpu_torch.utils.observability import host_read, host_reads
 
 __all__ = ["pcg", "pcg_start", "pcg_iteration", "GraphedPCG", "CapturedBody",
            "block_jacobi_inverse", "apply_block_precond"]
@@ -65,7 +67,7 @@ def pcg(operator, b, precond, x0=None, tol=1e-5, maxiter=1000):
     x = torch.zeros_like(b) if x0 is None else x0
     r, p, rz, rr, atol2 = pcg_start(operator, precond, b, x, tol)
     k = 0
-    while k < maxiter and bool(rr > atol2):
+    while k < maxiter and host_read("pcg.residual", rr > atol2):
         x, r, p, rz, rr = pcg_iteration(operator, precond, x, r, p, rz)
         k += 1
     rel = torch.sqrt(rr / torch.clamp(_dot(b, b), min=1e-300))
@@ -131,8 +133,8 @@ class GraphedPCG:
     first iteration it needs: the iterate in `state[0]` and the count are
     those `pcg` returns from the same x0.
     counters: a dict whose "operator" counts the operator's applications
-    (the operator adds one per eager call) and "syncs" the residual tests,
-    or None."""
+    (the operator adds one per eager call) and "syncs" the residual tests
+    (the host reads `iterate` makes), or None."""
 
     def __init__(self, operator, precond, like, counters=None):
         self.operator = operator
@@ -159,15 +161,14 @@ class GraphedPCG:
     def iterate(self, maxiter):
         """`pcg`'s loop from the started buffers; returns the iterations."""
         rr, atol2 = self.state[4:]
+        reads0 = host_reads()
         k = 0
-        while k < maxiter:
-            self.counters["syncs"] += 1
-            if not bool(rr > atol2):
-                break
+        while k < maxiter and host_read("pcg.residual", rr > atol2):
             if self.body is None:
                 self.body = CapturedBody(self._body, self.state[:5], self.counters)
             self.body.replay()
             k += 1
+        self.counters["syncs"] += host_reads() - reads0
         return k
 
 

@@ -44,9 +44,13 @@ collectives are identities and every function computes what it did
 before, in the same order.
 
 Functions take the barrier's `dHat` as an argument (the host path's dHat
-homotopy changes it between sub-solves). `counters` counts operator
-applications (each runs tet_hv once) and the values read back to the host
-(PCG's residual tests, the sparse solve's copies).
+homotopy changes it between sub-solves). `counters["operator"]` counts
+operator applications (each runs tet_hv once). Values read back to the
+host (PCG's residual tests, `e_float`, the direct solves' copies) go
+through utils/observability's `host_read`, which counts them; the layers
+are spans there: `search_dir` with `elasticity`, `pcg` and
+`coarse_assemble` inside (the self-contact pipeline adds `active_set` and
+`pairs`).
 """
 
 import types
@@ -58,6 +62,7 @@ from ipc_tpu_torch.ops.tet_hv import make_tet_hv_table, tet_hv
 from ipc_tpu_torch.parallel import spmd
 from ipc_tpu_torch.solver.coarse import build_aggregates, make_coarse_assembler
 from ipc_tpu_torch.solver.pcg import apply_block_precond, block_jacobi_inverse, pcg
+from ipc_tpu_torch.utils.observability import host_read, reading, span
 
 __all__ = ["build_terms"]
 
@@ -68,7 +73,7 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
     dbc: the Dirichlet mask (V,) bool (default: the mesh's); host: the JAX
     host path's variants; like: a terms namespace of the same stepper whose
     static tables (Hv table, aggregates) are reused; counters: a dict with
-    "operator" and "syncs" to add to (a new one by default)."""
+    "operator" to add to (a new one by default)."""
     mesh = stepper.mesh
     p = stepper.p
     sc = stepper.sc
@@ -106,7 +111,7 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
     # the rank that adds the replicated terms (every rank without a group)
     owner = spmd.owner()
     linsys = p.linsys if host else "pcg"
-    counters = dict(operator=0, syncs=0) if counters is None else counters
+    counters = dict(operator=0) if counters is None else counters
 
     def masked(mask, a):
         return torch.where(mask, torch.zeros_like(a), a)
@@ -137,7 +142,7 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
 
         def e_float(E):
             """Host float64 of a (hi, lo) pair (one host read)."""
-            hi, lo = torch.stack(E).to(torch.float64).tolist()
+            hi, lo = host_read("energy", torch.stack(E).to(torch.float64))
             return hi + lo
     else:
 
@@ -162,7 +167,7 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
             return E
 
         def e_float(E):
-            return float(E)
+            return host_read("energy", E)
 
     def damping_Av(x, damp):
         """(v4 (T,12), A v4) of the lagged damping term at x."""
@@ -172,12 +177,14 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
     def damping_blocks(x_prev):
         """Lagged Rayleigh damping: the SPD elasticity blocks at x_prev
         scaled by dampingStiff/dt (without the Newton matrix's h^2)."""
-        return (p.damping_stiff / dt) * EL.elasticity_hessian_blocks(x_prev, mesh, p.model,
-                                                                     True)
+        with span("elasticity"):
+            return (p.damping_stiff / dt) * EL.elasticity_hessian_blocks(x_prev, mesh,
+                                                                         p.model, True)
 
     def energy(x, x_tilde, kappa, dHat, fric, damp=None, fext=None, act=None, hsD=None,
                alw=None):
-        E = e_add_v(e_zero(), w_el * EL.elasticity_energy_per_elem(x, mesh, p.model))
+        with span("elasticity"):
+            E = e_add_v(e_zero(), w_el * EL.elasticity_energy_per_elem(x, mesh, p.model))
         if owner:
             dxv = x - x_tilde
             E = e_add_v(E, 0.5 * mesh.mass[:, None] * dxv * dxv)
@@ -213,7 +220,8 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
 
     def grad_no_contact_part(x, x_tilde):
         """This rank's part of grad_no_contact (the whole without a group)."""
-        g = w_el * EL.elasticity_gradient(x, mesh, p.model, vert_sum=gsum_tet)
+        with span("elasticity"):
+            g = w_el * EL.elasticity_gradient(x, mesh, p.model, vert_sum=gsum_tet)
         return g + mesh.mass[:, None] * (x - x_tilde) if owner else g
 
     def grad_no_contact(x, x_tilde):
@@ -253,7 +261,8 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
         return Hsv
 
     def tet_blocks(x, damp):
-        Hel = w_el * EL.elasticity_hessian_blocks(x, mesh, p.model, True)
+        with span("elasticity"):
+            Hel = w_el * EL.elasticity_hessian_blocks(x, mesh, p.model, True)
         return Hel if damp is None else Hel + damp["blocks"]
 
     def al_family(alw):
@@ -265,14 +274,15 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
         (the device step leaves the AL pull out, as the JAX package's)."""
         if coarse_assemble is None:
             return None
-        contribs = [(sv[:, None], hs_blocks(x, kappa, dHat, hsD))]
-        if sc is not None:
-            vids_act, H_act, _ = sc.hessian_blocks_active(x, cand, kappa, dHat, True)
-            contribs.append((vids_act, H_act))
-        contribs += stepper._friction_hessians(x, fric)
-        if host and alw is not None:
-            contribs.append(al_family(alw))
-        return coarse_assemble(mesh.mass, contribs, tet_H=tet_blocks(x, damp))
+        with span("coarse_assemble"):
+            contribs = [(sv[:, None], hs_blocks(x, kappa, dHat, hsD))]
+            if sc is not None:
+                vids_act, H_act, _ = sc.hessian_blocks_active(x, cand, kappa, dHat, True)
+                contribs.append((vids_act, H_act))
+            contribs += stepper._friction_hessians(x, fric)
+            if host and alw is not None:
+                contribs.append(al_family(alw))
+            return coarse_assemble(mesh.mass, contribs, tet_H=tet_blocks(x, damp))
 
     # corner-diagonal 3x3 blocks of (N,12,12) via one static column gather:
     # element (c,i,c,j) sits at flat column c*39 + i*12 + j
@@ -320,15 +330,16 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
         contribs += fric_blocks
         if alw is not None:
             contribs.append(al_family(alw))
-        # one host read: the system's copy (sparse) or the cell table (dense)
-        counters["syncs"] += 1
-        if linsys == "sparse":
-            from ipc_tpu_torch.solver.sparse_direct import sparse_solve
+        # one host read, counted around the solve: the system's copy
+        # (sparse) or the cell table (dense)
+        with reading("direct_solve"):
+            if linsys == "sparse":
+                from ipc_tpu_torch.solver.sparse_direct import sparse_solve
 
-            return sparse_solve(mesh.mass, dbc_t, rhs, contribs)
-        from ipc_tpu_torch.solver.direct import assemble_dense, dense_solve
+                return sparse_solve(mesh.mass, dbc_t, rhs, contribs)
+            from ipc_tpu_torch.solver.direct import assemble_dense, dense_solve
 
-        return dense_solve(assemble_dense(n_verts, mesh.mass, contribs, dbc_t), rhs)
+            return dense_solve(assemble_dense(n_verts, mesh.mass, contribs, dbc_t), rhs)
 
     def newton_system(x, kappa, dHat, act, fric, damp, hsD, alw, dbc_t):
         """The projected Newton matrix at x over the active set `act`:
@@ -388,6 +399,12 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
                    dbc_t):
         """(dx, g, PCG iterations, (active PT, active EE)) at x from the
         candidates `cand`; PCG starts from dx0 (None: zeros)."""
+        with span("search_dir"):
+            return _search_dir(x, x_tilde, kappa, dHat, cand, fric, dx0, Ainv_c, damp, fext,
+                               hsD, alw, dbc_t)
+
+    def _search_dir(x, x_tilde, kappa, dHat, cand, fric, dx0, Ainv_c, damp, fext, hsD, alw,
+                    dbc_t):
         # ONE candidate->active compaction per Newton iteration feeds the
         # barrier gradient AND the 12x12 block construction
         act = sc.active_set(x, cand, dHat) if sc is not None else None
@@ -404,7 +421,8 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
                 contribs += fric_blocks
                 if host and alw is not None:
                     contribs.append(al_family(alw))
-                Ainv_c = coarse_assemble(mesh.mass, contribs, tet_H=Hel)
+                with span("coarse_assemble"):
+                    Ainv_c = coarse_assemble(mesh.mass, contribs, tet_H=Hel)
             if Ainv_c is not None:
                 def precond(r):
                     return apply_block_precond(inv_diag, r) + coarse_term(Ainv_c, r)
@@ -412,9 +430,9 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
                 def precond(r):
                     return apply_block_precond(inv_diag, r)
 
-            dx, iters, rel = pcg(operator, -g, precond, x0=dx0, tol=p.pcg_tol,
-                                 maxiter=p.pcg_maxiter)
-            counters["syncs"] += iters + (iters < p.pcg_maxiter)  # residual tests
+            with span("pcg"):
+                dx, iters, rel = pcg(operator, -g, precond, x0=dx0, tol=p.pcg_tol,
+                                     maxiter=p.pcg_maxiter)
         # GD fail-safe on PCG breakdown (decided on the device)
         bad = (~torch.isfinite(dx).all()) | (~torch.isfinite(rel)) | (rel > 1.0)
         dx = torch.where(bad, apply_block_precond(inv_diag, -g), dx)

@@ -41,9 +41,10 @@ and the kappa doubling of postLineSearch.
 
 The JAX package jit-compiles these kernels; here each is eager PyTorch on
 the stepper's device, the card unless the mesh lives on the CPU. Every
-value read back to the host counts in `host_syncs`, and every Newton
-operator application (one tet_hv call each) in `operator_applications`
-(running counts over the stepper's host steps).
+value read back to the host goes through utils/observability's
+`host_read` and counts in `host_syncs`, and every Newton operator
+application (one tet_hv call each) in `operator_applications` (running
+counts over the stepper's host steps).
 
 The JAX candidate sets have fixed capacities that grow on overflow; the
 port's are exact-size, so the `ensure_*` regrow loops fall away. The kappa
@@ -61,6 +62,7 @@ import torch
 
 from ipc_tpu_torch.contact import selfcollision as SC
 from ipc_tpu_torch.parallel import spmd
+from ipc_tpu_torch.utils.observability import host_read, host_reads, reading
 
 __all__ = ["SimParams", "SimState", "IPCStepper", "StepStats"]
 
@@ -217,7 +219,8 @@ class IPCStepper:
         # step: one set on the mesh's mask, one with every vertex free for
         # the moving-DBC episode
         self._terms = {}
-        self._counters = dict(operator=0, syncs=0)
+        self._counters = dict(operator=0)
+        self._host_syncs = 0
         # one rank's part of a sharded run (parallel.sharding.shard_stepper)
         self.shard = None
 
@@ -230,7 +233,7 @@ class IPCStepper:
     @property
     def host_syncs(self):
         """Values the host path has read back to the host so far."""
-        return self._counters["syncs"]
+        return self._host_syncs
 
     # ------------------------------------------------------------------
     # host reads and writes (each read counts in host_syncs)
@@ -238,24 +241,14 @@ class IPCStepper:
 
     def _floats(self, *ts):
         """Host float64s of 0-d tensors, in one read."""
-        self._counters["syncs"] += 1
-        return torch.stack([t.to(torch.float64) for t in ts]).tolist()
+        return host_read("host.floats", torch.stack([t.to(torch.float64) for t in ts]))
 
     def _np(self, t):
-        self._counters["syncs"] += 1
-        return t.detach().cpu().numpy()
+        with reading("host.copy"):
+            return t.detach().cpu().numpy()
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a, np.float64), device=self.device).to(self.dtype)
-
-    def _other_syncs(self):
-        """Reads made inside the self-contact pipeline and the coarse
-        assemblers, which keep their own counts."""
-        n = self.sc.host_syncs if self.sc is not None else 0
-        for T in self._terms.values():
-            if T.coarse_assemble is not None:
-                n += T.coarse_assemble.host_syncs
-        return n
 
     def _terms_for(self, free=False):
         """The host path's terms on the mesh's mask, or (free=True) with
@@ -499,7 +492,7 @@ class IPCStepper:
                                       "jit_step.make_step under a process group")
         p = self.p
         T = self._terms_for()
-        syncs0 = self._other_syncs()
+        reads0 = host_reads()
         stats = StepStats()
         x = state.x
         dHat = self.dHat
@@ -618,7 +611,7 @@ class IPCStepper:
             v_new = (x - state.x_prev) / self.dt
             a_new = (v_new - state.v) / self.dt
         dx_el = (x - x_tilde) if p.warm_start >= 3 else None
-        self._counters["syncs"] += self._other_syncs() - syncs0
+        self._host_syncs += host_reads() - reads0
         return (SimState(x=x, x_prev=x, v=v_new, a=a_new, t=state.t + self.dt,
                          step=state.step + 1, dx_el=dx_el), stats)
 
@@ -742,7 +735,6 @@ class IPCStepper:
 
             # backtracking line search (Armijo c1 = 0) on host floats
             def energy(xe):
-                self._counters["syncs"] += 1
                 return T.e_float(T.energy(xe, x_tilde, kappa, dHat, fric, damp=damp, fext=fext,
                                           act=act_ls, hsD=self._hs_D, alw=alw))
 

@@ -1,4 +1,5 @@
-"""Run artifacts: timers, per-iteration stats, conservation logs, checkpoints.
+"""Run artifacts: timers, per-iteration stats, conservation logs, checkpoints,
+and the in-program recorder of spans, host reads and counters.
 
 Port of ipc_tpu/utils/observability.py (the reference's Timer registries,
 iterStats, sysE/sysM/sysL conservation logs and saveStatus / restart). The
@@ -19,20 +20,62 @@ never updates them (its planes live in SimState.aux): its restart starts
 the planes, and any turning rules, from their initial state, as the JAX
 driver's does (ROADMAP §3). Neither package stores SimState.dx_el (the
 warm-start correction of warm_start 3-4).
+
+The recorder (port-only; off by default, and turning it on changes no
+result):
+
+  span(name, **attrs)   a context manager around one layer of the step.
+                        While tracing is off it returns one shared no-op
+                        object: no allocation, no clock read, no device
+                        work. While on it records (id, parent id, name,
+                        start_ns, end_ns, attrs) in memory, and under an
+                        active torch.profiler session it also opens a
+                        `record_function` range of the same name.
+  host_read(site, *ts)  every value the steps read back to the host goes
+                        through it (`reading(site)` for a read that is not
+                        a `.tolist()`, such as a copy to numpy or a
+                        `torch.nonzero`). It always counts the read by site;
+                        while tracing is on the read is also a leaf span
+                        `host_read` with `site=`, whose duration is the
+                        time the host waited for the device.
+  count(name, n)        a host counter, always on.
+  count_device(name, t) adds a 0-d device tensor to a device accumulator,
+                        only while tracing is on (no host read).
+  set_tracing(on)       the one switch; `collect()` returns the recording
+                        (spans, counters, reads by site) since tracing was
+                        turned on or last collected, reading the device
+                        accumulators in one read that counts as no host
+                        read of a step.
+
+Span times are on the profiler's clock: durations come from
+`time.perf_counter_ns()`, placed on `time.time_ns()` (CLOCK_REALTIME, the
+clock Kineto stamps CPU events with) through one anchor taken when tracing
+is turned on, so a clock step cannot bend a duration.
 """
 
 import json
 import os
 import resource
 import time
-from collections import defaultdict
+from collections import defaultdict, namedtuple
 
 import numpy as np
 import torch
 
-from ipc_tpu_torch.timestepper import SimState
-
 __all__ = [
+    "Span",
+    "span",
+    "host_read",
+    "reading",
+    "host_reads",
+    "host_reads_by_site",
+    "count",
+    "count_device",
+    "set_tracing",
+    "tracing",
+    "collect",
+    "span_totals",
+    "step_coverage",
     "Timers",
     "RunLogger",
     "save_status",
@@ -43,8 +86,215 @@ __all__ = [
 ]
 
 
+Span = namedtuple("Span", "id parent name start_ns end_ns attrs")
+
+
+class _NoSpan:
+    """The span of a step run without tracing: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+_rec = None  # the active _Recording while tracing is on
+_kept = None  # the recording of the last traced stretch, after tracing went off
+_READS = defaultdict(int)  # host reads by site, since import
+_reads_total = 0
+_COUNTS = defaultdict(int)  # host counters, since import
+
+
+class _Recording:
+    def __init__(self):
+        self.wall0, self.perf0 = time.time_ns(), time.perf_counter_ns()
+        self.reset()
+
+    def reset(self):
+        self.spans, self.stack, self.next_id = [], [], 1
+        self.device = {}
+        self.counts0, self.reads0 = dict(_COUNTS), dict(_READS)
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "id", "parent", "t0", "rf")
+
+    def __init__(self, name, attrs):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        rec = _rec
+        self.id, self.parent = rec.next_id, rec.stack[-1] if rec.stack else 0
+        rec.next_id += 1
+        rec.stack.append(self.id)
+        self.t0 = time.perf_counter_ns()
+        self.rf = None
+        if torch.autograd._profiler_enabled():
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        t1 = time.perf_counter_ns()
+        rec = _rec
+        if rec is not None and rec.stack and rec.stack[-1] == self.id:
+            rec.stack.pop()
+            off = rec.wall0 - rec.perf0
+            rec.spans.append(Span(self.id, self.parent, self.name, self.t0 + off, t1 + off,
+                                  self.attrs))
+        return False
+
+
+def span(name, **attrs):
+    """A context manager spanning one layer of a step (module docstring)."""
+    if _rec is None:
+        return _NO_SPAN
+    return _Span(name, attrs)
+
+
+def reading(site):
+    """Counts one host read at `site` around a read that is not a
+    `.tolist()`; while tracing is on, a `host_read` span."""
+    global _reads_total
+    _reads_total += 1
+    _READS[site] += 1
+    if _rec is None:
+        return _NO_SPAN
+    return _Span("host_read", {"site": site})
+
+
+def host_read(site, *tensors):
+    """Python values of tensors read back to the host in one read: the
+    single tensor's `.tolist()` (a number for a 0-d tensor), or the
+    `.tolist()` of several stacked."""
+    t = tensors[0] if len(tensors) == 1 else torch.stack(tensors)
+    if _rec is None:
+        global _reads_total
+        _reads_total += 1
+        _READS[site] += 1
+        return t.tolist()
+    with reading(site):
+        return t.tolist()
+
+
+def host_reads():
+    """Host reads since import, all sites."""
+    return _reads_total
+
+
+def host_reads_by_site():
+    return dict(_READS)
+
+
+def count(name, n=1):
+    """Adds n to a host counter (always on)."""
+    _COUNTS[name] += n
+
+
+def count_device(name, t):
+    """Adds the 0-d device tensor t to a device accumulator while tracing
+    is on; nothing otherwise."""
+    if _rec is not None:
+        acc = _rec.device.get(name)
+        t = t.to(torch.int64)
+        _rec.device[name] = t if acc is None else acc + t
+
+
+def tracing():
+    return _rec is not None
+
+
+def set_tracing(on):
+    """Turns tracing on (a new recording) or off (the recording stays for
+    `collect`)."""
+    global _rec, _kept
+    if on and _rec is None:
+        _rec, _kept = _Recording(), None
+    elif not on and _rec is not None:
+        _rec, _kept = None, _rec
+
+
+def collect():
+    """dict(spans [Span], counters {name: int}, reads {site: int}) since
+    tracing was turned on or last collected; the spans of the ranges still
+    open are not there yet. The device accumulators are read in one read
+    (not counted as a host read). Then a new recording starts while tracing
+    is on. None if tracing was never on."""
+    global _kept
+    rec = _rec if _rec is not None else _kept
+    if rec is None:
+        return None
+    counters = {k: v - rec.counts0.get(k, 0) for k, v in _COUNTS.items()
+                if v != rec.counts0.get(k, 0)}
+    by_dev = defaultdict(list)
+    for name, t in rec.device.items():
+        by_dev[t.device].append((name, t))
+    for items in by_dev.values():
+        vals = torch.stack([t.reshape(()) for _, t in items]).tolist()
+        counters.update((name, int(v)) for (name, _), v in zip(items, vals))
+    reads = {k: v - rec.reads0.get(k, 0) for k, v in _READS.items()
+             if v != rec.reads0.get(k, 0)}
+    out = dict(spans=sorted(rec.spans, key=lambda s: s.start_ns), counters=counters,
+               reads=reads)
+    rec.spans = []
+    rec.device = {}
+    rec.counts0, rec.reads0 = dict(_COUNTS), dict(_READS)
+    if rec is _kept:
+        _kept = None
+    return out
+
+
+def span_totals(spans):
+    """{name: (count, inclusive ns)} over a recording's spans, a span
+    nested in one of the same name counted once; `host_read` spans by
+    site as "host_read:<site>"."""
+    by_id = {sp.id: sp for sp in spans}
+    out = defaultdict(lambda: [0, 0])
+
+    def nested(sp):
+        p = by_id.get(sp.parent)
+        while p is not None:
+            if p.name == sp.name:
+                return True
+            p = by_id.get(p.parent)
+        return False
+
+    for sp in spans:
+        keys = [sp.name] + ([f"host_read:{sp.attrs['site']}"] if sp.name == "host_read" else [])
+        for key in keys:
+            out[key][0] += 1
+            if not nested(sp):
+                out[key][1] += sp.end_ns - sp.start_ns
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def step_coverage(spans):
+    """Per `step` span, the share of its time that its direct children and
+    each `newton` child's children cover (the tiling of the step)."""
+    kids = defaultdict(list)
+    for sp in spans:
+        kids[sp.parent].append(sp)
+
+    def dur(sp):
+        return sp.end_ns - sp.start_ns
+
+    out = []
+    for st in (sp for sp in spans if sp.name == "step"):
+        covered = sum(dur(c) if c.name != "newton" else sum(dur(g) for g in kids[c.id])
+                      for c in kids[st.id])
+        out.append(covered / max(dur(st), 1))
+    return out
+
+
 class Timers:
-    """Named cumulative wall-clock activity timers."""
+    """Named cumulative wall-clock activity timers; each section is also a
+    span of the same name."""
 
     def __init__(self):
         self.acc = defaultdict(float)
@@ -59,13 +309,16 @@ class Timers:
 
     def section(self, name):
         timers = self
+        sp = span(name)
 
         class _Ctx:
             def __enter__(self):
+                sp.__enter__()
                 timers.start(name)
 
             def __exit__(self, *a):
                 timers.stop(name)
+                return sp.__exit__(*a)
 
         return _Ctx()
 
@@ -208,6 +461,8 @@ def save_status_text(path, state, step_idx):
 
 
 def _state(stepper, x, v, a, t, step):
+    from ipc_tpu_torch.timestepper import SimState
+
     def conv(arr):
         return torch.as_tensor(np.asarray(arr, np.float64), device=stepper.device).to(
             stepper.dtype)

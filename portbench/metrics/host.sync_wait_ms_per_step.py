@@ -1,0 +1,10 @@
+"""Host wall ms per step of the program's `host_read` spans: the time the host
+waited in the values it read back, inclusive, a span nested in one of the
+same name counted once, over the span round (portbench/spans.py). None
+without the program's recorder or without such a span."""
+
+from portbench import spans
+
+
+def read(ctx):
+    return spans.span_ms_per_step(ctx, "host_read")

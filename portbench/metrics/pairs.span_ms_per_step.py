@@ -1,0 +1,11 @@
+"""Host wall ms per step of the program's `pairs` spans (the active pairs'
+Hessian blocks, gradient and energy, and the friction capture), inclusive, a
+span nested in one of the same name counted once, over the span round
+(portbench/spans.py). None without the program's recorder or without such a
+span."""
+
+from portbench import spans
+
+
+def read(ctx):
+    return spans.span_ms_per_step(ctx, "pairs")

@@ -1,0 +1,10 @@
+"""Host wall ms per step of the program's `pcg` spans (the PCG solves, their
+residual reads included), inclusive, a span nested in one of the same name
+counted once, over the span round (portbench/spans.py). None without the
+program's recorder or without such a span."""
+
+from portbench import spans
+
+
+def read(ctx):
+    return spans.span_ms_per_step(ctx, "pcg")
