@@ -21,7 +21,15 @@ and ends the run with a non-zero exit code (nothing is caught):
      SpMV through a torch CSR matrix assembled from the same H, which must
      agree within the same tolerance), the assembly's time, the bound
      (bytes at 3.35 TB/s) with the kernel's share of it, and each device
-     kernel's time per call (torch.profiler);
+     kernel's time per call (torch.profiler). Then ACCD (csrc/accd.cu)
+     against its plain version `_accd` on the card
+     (ipc_tpu_torch/accd_timing.py): the largest point-triangle and
+     edge-edge candidate sets of one device step of the twist (n = 100,
+     step 0) and of the landing (the boxes at 20, step 8), float32 and
+     float64, |dt| within 1e-5 (f32) / 1e-12 (f64) and every stencil's
+     live passes equal; over each step kernel launches == ACCD calls; the
+     kernel's and the plain version's device time per call and the bound
+     (stencils read once and t written once, at 3.35 TB/s);
   4. ground path: build_scene(n_cells=20, float32, "cuda") -> make_step for
      3 steps (96,000 tets; ground contact and friction, no self-contact).
      Counts are zeroed just before: the Hv kernel must have launched once
@@ -194,16 +202,20 @@ first, alone on the card; then the references 5, 9 and 11, with 20's sweep
 in one child process, 14 in another and 16, 17 and 19 in a third beside
 them.
 
-The line before the last is the kernels record (its launches: the
-contact, twist, driver, host, QP, sharded and battery paths', the sharded
-one summed over its ranks; timed at the driver shape), the last line
+The line before the last is the kernels record: tet_hv and accd (the
+ACCD wrappers' launches summed), each with its launches over the contact,
+twist, driver, host, QP, sharded and battery paths (counts zeroed before
+each path; the sharded one summed over its ranks; repeats and restarts not
+counted; every path must launch both), tet_hv timed at the driver shape,
+accd at the landing's candidate sets in float32 (its ms, plain_ms and
+bound_ms the two families' sum, its n per family), the last line
 {"ok": true, "device": {...}}. Without a CUDA device the run fails in
 phase 1 and prints neither.
 
 `python3 chip_smoke.py --only qp_path,qp_reference,diagnostic` runs the
 device and build phases and the phases named (a check of a few phases;
-its kernels line counts only their launches and times the kernel at the
-driver shape alone; qp_path alone first runs the contact scene's 8
+its kernels line counts only their launches and times tet_hv at the
+driver shape and ACCD at the landing's candidate sets alone; qp_path alone first runs the contact scene's 8
 device steps to reach its start; battery_path runs its run_one and its
 sweep).
 """
@@ -218,6 +230,35 @@ import numpy as np
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def _zero_launches():
+    """tet_hv's and the ACCD wrappers' launch counts set to 0 before a path."""
+    from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
+    from ipc_tpu_torch.ops.tet_hv import tet_hv
+
+    tet_hv.launches = accd_pt.launches = accd_ee.launches = 0
+
+
+def _accd_counts():
+    """(accd_pt's, accd_ee's) launches: one per ccd_alpha call and family."""
+    from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
+
+    return accd_pt.launches, accd_ee.launches
+
+
+def _restore_accd_counts(counts):
+    """Puts _accd_counts() back after a repeat, which is not a main-path run."""
+    from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
+
+    accd_pt.launches, accd_ee.launches = counts
+
+
+def _path_launches(tag, hv, accd):
+    """{"tet_hv": hv, "accd": accd} of one path, accd checked to have run."""
+    print(f"[{tag}] accd launches={accd}", flush=True)
+    check(accd > 0, f"ACCD launched on the {tag} path")
+    return {"tet_hv": hv, "accd": accd}
 
 
 def phase_device():
@@ -271,6 +312,43 @@ def phase_kernel_vs_plain(device):
             check(r["library_err"] <= r["limit"], f"{what}: the yardstick computes the same map")
             check(r["tetless_zero"] in (None, True), f"{what}: tet-less rows are exact zeros")
             records[(scene, n_cells, r["dtype"])] = r
+    return records, accd_vs_plain(device, ("twist", "boxes"))
+
+
+ACCD_LIMIT = {"float32": 1e-5, "float64": 1e-12}
+
+
+def accd_vs_plain(device, scenes):
+    """ACCD's kernel against its plain version on the card (module
+    docstring, phase 3) on the candidate sets of `scenes`
+    (accd_timing.SCENES). Returns {(scene, family, dtype): record of
+    accd_timing.measure}."""
+    import torch
+
+    from ipc_tpu_torch.accd_timing import measure, scene_calls
+
+    records = {}
+    for scene in scenes:
+        kept, counters = scene_calls(scene, device)
+        print(f"[kernel] accd {scene} step counters: {json.dumps(counters)}")
+        check(counters["ccd.kernel_calls"] == counters["ccd.calls"] == counters["launches"] > 0,
+              f"accd {scene}: one kernel launch per ACCD call")
+        check(set(kept) == {"pt", "ee"}, f"accd {scene}: both families have candidates")
+        for kind, (x4, p4) in sorted(kept.items()):
+            for dtype in (torch.float32, torch.float64):
+                r = measure(kind, x4.to(dtype), p4.to(dtype))
+                name = str(dtype).replace("torch.", "")
+                print(f"[kernel] accd_{kind} {scene} {name}: n={r['n']} max_abs_diff="
+                      f"{r['max_abs_diff']:.3e} (limit {ACCD_LIMIT[name]:.0e}) bit_equal="
+                      f"{r['bit_equal']:.6f} live_equal={r['live_equal']:.6f} "
+                      f"live_pair_passes={r['live_pair_passes']} live_passes={r['live_passes']} "
+                      f"kernel_ms={r['kernel_ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+                      f"bytes={r['bytes']} bound_us={r['bound_us']:.3f} "
+                      f"share_of_bound={r['share_of_bound']:.4f}", flush=True)
+                what = f"accd_{kind} {name} {scene}"
+                check(r["max_abs_diff"] <= ACCD_LIMIT[name], f"{what} within tolerance")
+                check(r["live_equal"] == 1.0, f"{what}: every stencil's live passes equal")
+                records[(scene, kind, name)] = r
     return records
 
 
@@ -414,7 +492,7 @@ def phase_contact_path(device):
     print(f"[contact] scene n_cells=20 float32 with self-contact: {st.mesh.tets.shape[0]} "
           f"tets, {st.mesh.x_rest.shape[0]} verts, broad phase {sc.broadphase}, setup "
           f"{time.perf_counter() - t0:.2f} s")
-    tet_hv.launches = 0
+    _zero_launches()
     ops0, syncs0 = step.operator_applications, step.host_syncs
     total, newton = 0.0, 0
     saw_active = saw_fric = False
@@ -456,8 +534,9 @@ def phase_contact_path(device):
     check(saw_fric, "self-friction pairs were captured")
     check(launches > 0, "tet_hv launched on the contact path")
     check(launches == ops, "one tet_hv launch per operator application (contact)")
+    counts = _path_launches("contact", launches, sum(_accd_counts()))
     _bitwise_repeat(step, post_impact, "contact")
-    return launches, (st, qp_lead)
+    return counts, (st, qp_lead)
 
 
 def _qp_lead(device):
@@ -481,7 +560,7 @@ def phase_qp_path(device, lead, n_steps=2):
     15): the contact path's boxes (96,000 tets, ground half-space and
     self-contact) from its state after step 7, through
     QPStepper(mode="SQP", constraint_type="graphics") for n_steps steps.
-    Returns the run's tet_hv launches (the repeat's not counted)."""
+    Returns the run's tet_hv and ACCD launches (the repeat's not counted)."""
     import torch
 
     from ipc_tpu_torch.ops.tet_hv import tet_hv
@@ -495,7 +574,7 @@ def phase_qp_path(device, lead, n_steps=2):
     n_lower = st.mesh.x_rest.shape[0] // 2
     mid = 0.5 * (st.mesh.x_rest[:n_lower, 1].min() + st.mesh.x_rest[:n_lower, 1].max()).item()
     _sync(device)
-    tet_hv.launches = 0
+    _zero_launches()
     ops0 = q.operator_applications
     total, repeat = 0.0, None
     for i in range(n_steps):
@@ -523,7 +602,7 @@ def phase_qp_path(device, lead, n_steps=2):
         check(hv == ops, "one tet_hv launch per operator application (QP path)")
         repeat = (state, nxt)
         state = nxt
-    launches = tet_hv.launches
+    launches, accd = tet_hv.launches, _accd_counts()
     check(launches == q.operator_applications - ops0 > 0, "tet_hv launched on the QP path")
     print(f"[qp] {n_steps} steps in {total:.3f} s ({total / n_steps:.4f} s per step); "
           f"tet_hv launches={launches}", flush=True)
@@ -547,7 +626,8 @@ def phase_qp_path(device, lead, n_steps=2):
           "the device ran one tet_hv launch per counted launch and operator application, "
           "graph replays included (QP path)")
     tet_hv.launches = launches  # the repeat's launches are not the main run's
-    return launches
+    _restore_accd_counts(accd)
+    return _path_launches("qp", launches, sum(accd))
 
 
 def _traced_second_call(admm_qp, q, traced):
@@ -676,7 +756,7 @@ def phase_twist_path(device, n=100, n_steps=12):
           f"{st.mesh.x_rest.shape[0]} verts, {st.mesh.surf_tris.shape[0]} surface triangles, "
           f"{int(st.mesh.dbc_mask.sum())} handle verts, broad phase {sc.broadphase}, setup "
           f"{time.perf_counter() - t0:.2f} s")
-    tet_hv.launches = 0
+    _zero_launches()
     ops0, syncs0 = step.operator_applications, step.host_syncs
     total, newton, pcg = 0.0, 0, 0
     pre = state
@@ -714,6 +794,7 @@ def phase_twist_path(device, n=100, n_steps=12):
           f"syncs={syncs} ({syncs / n_steps:.1f} per step)")
     check(launches > 0, "tet_hv launched on the twist path")
     check(launches == ops, "one tet_hv launch per operator application (twist)")
+    counts = _path_launches("twist", launches, sum(_accd_counts()))
     # the handles against the exact rotation of their rest positions
     V, _ = mat(n, size=1.0)
     x = state.x.double().cpu().numpy()
@@ -730,7 +811,7 @@ def phase_twist_path(device, n=100, n_steps=12):
         check(err <= tol, "handle rows follow the exact rotation")
         check(turned > 1e-3, "the handles turned")
     _bitwise_repeat(step, pre, "twist")
-    return launches
+    return counts
 
 
 def _hold(tag, cpu_step, card_step, pre, rng, device):
@@ -1086,7 +1167,7 @@ def _driver_scene_files(name, n_cells):
 
 def phase_driver_path(device, n_cells=20):
     """The scene-file driver at full width (module docstring, phase 12), in
-    build/driver_path/ of this checkout. Returns the run's tet_hv
+    build/driver_path/ of this checkout. Returns the run's tet_hv and ACCD
     launches."""
     import os
 
@@ -1103,11 +1184,11 @@ def phase_driver_path(device, n_cells=20):
     if torch.device(device).type != "cuda":  # a CPU rehearsal; the card is the default
         args += ["--device", str(device)]
 
-    tet_hv.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     check(cli_main([scene, "-o", out] + args) == 0, "the CLI run exits 0")
     wall = time.perf_counter() - t0
-    launches = tet_hv.launches
+    launches, accd = tet_hv.launches, _accd_counts()
     names = ["config.txt", "iterStats.txt", "sysE.txt", "sysM.txt", "sysL.txt", "info.txt",
              "resultsStats.txt"] + [f"{a}{k}.{b}" for k in (5, 10)
                                     for a, b in (("status", "npz"), ("surf", "obj"))]
@@ -1182,7 +1263,8 @@ def phase_driver_path(device, n_cells=20):
           f"status10 bitwise equal={same}")
     check(same, "a restart from status5 reproduces status10 bitwise")
     tet_hv.launches = launches  # the restart's launches are not the main run's
-    return launches
+    _restore_accd_counts(accd)
+    return _path_launches("driver", launches, sum(accd))
 
 
 def _sync(device):
@@ -1200,7 +1282,8 @@ def _host_counts(stats):
 
 def phase_host_path(device, n_cells=20, n_steps=10):
     """The host path at full width (module docstring, phase 13), in
-    build/host_path/ of this checkout. Returns the run's tet_hv launches."""
+    build/host_path/ of this checkout. Returns the run's tet_hv and ACCD
+    launches."""
     import os
 
     import torch
@@ -1245,7 +1328,7 @@ def phase_host_path(device, n_cells=20, n_steps=10):
         check(ymin > 0.0, "the lower box stays above the plate")
         return nxt, st
 
-    tet_hv.launches = 0
+    _zero_launches()
     IPCStepper.step = checked_step
     try:
         t0 = time.perf_counter()
@@ -1253,7 +1336,7 @@ def phase_host_path(device, n_cells=20, n_steps=10):
         wall = time.perf_counter() - t0
     finally:
         IPCStepper.step = host_step
-    launches = tet_hv.launches
+    launches, accd = tet_hv.launches, _accd_counts()
     with open(os.path.join(out, "info.txt")) as f:
         info = json.load(f)
     stats = info["step_stats"]
@@ -1293,7 +1376,8 @@ def phase_host_path(device, n_cells=20, n_steps=10):
     print(f"[host] one step twice from status5.npz: bitwise_equal={same}")
     check(same, "host step bitwise repeatable")
     tet_hv.launches = launches  # the repeat's launches are not the main run's
-    return launches
+    _restore_accd_counts(accd)
+    return _path_launches("host", launches, sum(accd))
 
 
 def _host_snapshot(st):
@@ -1546,16 +1630,18 @@ def _sharded_job(rank, world, device, spec):
         s, last = jobs.steps(st, step, pre, 1)
         out["rows"] += rows + last
         if spec.get("repeat_last"):
-            launches0 = tet_hv.launches
+            launches0, accd0 = tet_hv.launches, _accd_counts()
             again, _ = step(pre)
             tet_hv.launches = launches0  # a comparison, not a main-path run
+            _restore_accd_counts(accd0)
             out["rows"][-1]["repeat_equal"] = bool(torch.equal(again.x, s.x))
     return dict(jobs.rank_info(st, rank), **out)
 
 
 def phase_sharded_path(device, lead, ranks=2):
     """The contact path's boxes split over `ranks` ranks through steps 8-9
-    (module docstring, phase 18). Returns the ranks' tet_hv launches."""
+    (module docstring, phase 18). Returns the ranks' tet_hv and ACCD
+    launches."""
     import os
 
     import torch
@@ -1594,7 +1680,8 @@ def phase_sharded_path(device, lead, ranks=2):
               f"collectives={[r['collectives'] for r in rows]} per-rank counts "
               f"{[r['rank_counts'] for r in rows]} operator_applications="
               f"{[r['operator_applications'] for r in rows]} tet_hv_launches="
-              f"{[r['tet_hv_launches'] for r in rows]} ymin={[r['ymin'] for r in rows]} "
+              f"{[r['tet_hv_launches'] for r in rows]} accd_launches="
+              f"{[r['accd_launches'] for r in rows]} ymin={[r['ymin'] for r in rows]} "
               f"intersection={[r['intersection'] for r in rows]} wall_s="
               f"{[round(r['wall_s'], 4) for r in rows]}", flush=True)
         for r in rows:
@@ -1622,7 +1709,8 @@ def phase_sharded_path(device, lead, ranks=2):
         rep = o["rows"][-1]["repeat_equal"]
         print(f"[sharded] rank {o['rank']}: step 9 twice from one state: bitwise_equal={rep}")
         check(rep, "sharded step bitwise repeatable")
-    return sum(r["tet_hv_launches"] for o in outs for r in o["rows"])
+    return _path_launches("sharded", sum(r["tet_hv_launches"] for o in outs for r in o["rows"]),
+                          sum(r["accd_launches"] for o in outs for r in o["rows"]))
 
 
 def _sharded_cpu_case(patterns=6):
@@ -1733,7 +1821,8 @@ def _battery_dir(*parts):
 
 def phase_battery_path(device, n=100, n_steps=4):
     """The paper battery's run_one at full width (module docstring, phase
-    20), in build/battery/ of this checkout. Returns its tet_hv launches."""
+    20), in build/battery/ of this checkout. Returns its tet_hv and ACCD
+    launches."""
     import shutil
 
     import torch
@@ -1747,12 +1836,12 @@ def phase_battery_path(device, n=100, n_steps=4):
     scene = write_twist_scene(_battery_dir(), n)
     print(f"[battery] wrote {scene} (mat({n}) as .msh) in {time.perf_counter() - t0:.2f} s")
     counts = {}
-    tet_hv.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     rec = paper_battery.run_one(scene, n_steps, 240.0, dtype=torch.float32, use_jit=True,
                                 device=device, counts=counts)
     wall = time.perf_counter() - t0
-    launches = tet_hv.launches
+    launches, accd = tet_hv.launches, _accd_counts()
     print(f"[battery] record {json.dumps(rec)}")
     print(f"[battery] matTwist{n}: {rec['tets']} tets, {rec['verts']} verts, path "
           f"{rec['path']}, {rec['steps']} steps in {rec['secs']} s "
@@ -1768,7 +1857,7 @@ def phase_battery_path(device, n=100, n_steps=4):
           "the battery ran the device step for every step at full width")
     check(launches > 0 and launches == counts["operator_applications"],
           "one tet_hv launch per operator application (battery)")
-    return launches
+    return _path_launches("battery", launches, sum(accd))
 
 
 STALL_SCENE = """energy NH
@@ -1937,22 +2026,27 @@ def main(argv=None):
     child = None
     try:
         # the timed phases first, alone on the card
-        launches = 0
-        records = run("kernel_vs_plain", phase_kernel_vs_plain, device)
+        launches = {"tet_hv": 0, "accd": 0}
+
+        def add(counts):
+            for k, v in (counts or {}).items():
+                launches[k] += v
+
+        records, accd = run("kernel_vs_plain", phase_kernel_vs_plain, device) or (None, None)
         run("ground_path", phase_ground_path, device)
         run("broadphase", phase_broadphase, device)
         contact = run("contact_path", phase_contact_path, device)
         qp_lead = None  # the contact path's scene and state after step 7
         if contact is not None:
-            launches += contact[0]
+            add(contact[0])
             qp_lead = contact[1]
         run("bench_timing", phase_bench_timing, device)
-        launches += run("twist_path", phase_twist_path, device) or 0
-        launches += run("driver_path", phase_driver_path, device) or 0
-        launches += run("host_path", phase_host_path, device) or 0
-        launches += run("qp_path", phase_qp_path, device, qp_lead) or 0
-        launches += run("sharded_path", phase_sharded_path, device, qp_lead) or 0
-        launches += run("battery_path", phase_battery_path, device) or 0
+        add(run("twist_path", phase_twist_path, device))
+        add(run("driver_path", phase_driver_path, device))
+        add(run("host_path", phase_host_path, device))
+        add(run("qp_path", phase_qp_path, device, qp_lead))
+        add(run("sharded_path", phase_sharded_path, device, qp_lead))
+        add(run("battery_path", phase_battery_path, device))
         # then the references, which are not timed: the battery's sweep, the
         # host reference, and the QP reference with the diagnostic, in
         # three child processes on the same card beside the others
@@ -1982,17 +2076,28 @@ def main(argv=None):
             pool.terminate()
             pool.join()
     print(f"[phase] total {sum(s for _, s in phases):.1f} s")
-    if records is None:  # a partial run: time the kernel at the driver shape alone
+    if records is None:  # a partial run: time the kernels at one shape alone
         from ipc_tpu_torch.hv_timing import measure
 
         records = {("driver", 20, "float32"): measure(20, torch.float32, device, "driver")}
+        accd = accd_vs_plain(device, ("boxes",))
     r = records[("driver", 20, "float32")]  # the driver path's shape and dtype
+    a = [accd[("boxes", kind, "float32")] for kind in ("pt", "ee")]  # the landing's sets
+    bound_us = sum(x["bound_us"] for x in a)
+    ms = sum(x["kernel_ms"] for x in a)
     print(json.dumps({"kernels": [dict(
         name="tet_hv", route="cuda", source="ipc_tpu_torch/csrc/tet_hv.cu",
-        replaces="ipc_tpu/ops/pallas_hv.py:107", launches=launches,
+        replaces="ipc_tpu/ops/pallas_hv.py:107", launches=launches["tet_hv"],
         max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"], library_ms=r["library_ms"],
         bound_us=r["bound_us"], share_of_bound=r["share_of_bound"],
+    ), dict(
+        name="accd", route="cuda", source="ipc_tpu_torch/csrc/accd.cu",
+        replaces="ipc_tpu/contact/ccd.py:64", launches=launches["accd"],
+        n={"pt": a[0]["n"], "ee": a[1]["n"]}, max_abs_err=max(x["max_abs_diff"] for x in a),
+        ms=ms, plain_ms=sum(x["plain_ms"] for x in a), bound_ms=bound_us / 1e3,
+        bound_by="bytes", library_ms=None, bound_us=bound_us,
+        share_of_bound=bound_us / (1e3 * ms),
     )]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -81,5 +81,11 @@ def load_kernels():
             fn.restype = i32
         lib.ipc_tet_hv_device_launches.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
         lib.ipc_tet_hv_device_launches.restype = i32
+        f64 = ctypes.c_double
+        for name in ("ipc_accd_pt_f32", "ipc_accd_pt_f64", "ipc_accd_ee_f32", "ipc_accd_ee_f64"):
+            fn = getattr(lib, name)
+            # x4, p4, n, slackness, max_iter, t_max, t (out), live (out or null), stream
+            fn.argtypes = [ptr, ptr, i32, f64, i32, f64, ptr, ptr, ptr]
+            fn.restype = i32
         _lib = lib
     return _lib

@@ -6,13 +6,25 @@ Port of ipc_tpu/contact/ccd.py:27-80, 115-214.
 ACCD (Li, Kaufman, Jiang 2021, Codimensional IPC, supplement): each stencil
 advances its time by steps that provably cannot close more than the
 remaining gap and stops leaving `slackness * d0` of it. The JAX package
-runs a `fori_loop` of `max_iter` iterations with a `done` mask; the port
-runs the same fixed count over all pairs at once, with no host read.
-Counters (utils/observability.py): `ccd.passes` (max_iter per call) and
-`ccd.pair_passes` (pairs x passes) on the host, always; while tracing is
-on, `ccd.live_passes` (passes that begin with a pair not done) and
-`ccd.live_pair_passes` (pairs not done at a pass's start, summed) on the
-device: one in-place add of `done` per pass, which changes no result.
+runs a `fori_loop` of `max_iter` iterations with a `done` mask. For CUDA
+tensors `accd_pt` / `accd_ee` launch one kernel per call (csrc/accd.cu):
+one thread per stencil runs the loop in registers and leaves it when its
+pair is done, which changes no result (a done pair keeps its t and done
+never clears), with no host read. For CPU tensors, and only there, they
+run `_accd`, the plain version: the same `max_iter` passes over all pairs
+at once in PyTorch, with the same arithmetic. A CUDA tensor never reaches
+it: the kernel launches or the call raises. Each launch counts in the
+wrapper's `launches` (ops/launch_counts).
+
+Counters (utils/observability.py): on the host, always, `ccd.calls` (calls
+with at least one stencil), `ccd.kernel_calls` (kernel launches),
+`ccd.passes` (max_iter per call) and `ccd.pair_passes` (stencils x
+max_iter); while tracing is on, on the device, `ccd.live_passes` (passes
+that begin with a stencil not done: the most over the call's stencils)
+and `ccd.live_pair_passes` (stencils not done at a pass's start, summed
+over the passes). The kernel writes each stencil's live passes when
+asked; the plain version adds `done` in place once per pass. Neither
+changes a result.
 
 Interval CCD (`ti_pt`, `ti_ee`): with linear vertex motion the separation
 function is affine in t for fixed barycentric coordinates and affine in
@@ -29,6 +41,7 @@ it by `jax.grad`), which keeps sliding contacts certified in one test.
 import torch
 
 from ipc_tpu_torch.ops.distance import cross, edge_edge_dist2, point_triangle_dist2
+from ipc_tpu_torch.ops.launch_counts import count_launch, register
 from ipc_tpu_torch.utils.observability import count, count_device, tracing
 
 __all__ = ["accd_pt", "accd_ee", "ti_pt", "ti_ee"]
@@ -40,6 +53,21 @@ def _norm(v):
 
 def _accd(x4, p4, dist2_fn, slackness, max_iter, t_max=1.0):
     """Safe steps (N,) in [0, t_max] for stencils x4 (N,4,3) moving by p4."""
+    n = int(x4.shape[0])
+    count("ccd.passes", max_iter)
+    count("ccd.pair_passes", n * max_iter)
+    t, done_passes = _accd_loop(x4, p4, dist2_fn, slackness, max_iter, t_max,
+                                tracing() and n > 0)
+    if done_passes is not None:
+        count_device("ccd.live_pair_passes", n * max_iter - done_passes.sum())
+        count_device("ccd.live_passes", max_iter - done_passes.min())
+    return t
+
+
+def _accd_loop(x4, p4, dist2_fn, slackness, max_iter, t_max, want_done):
+    """(t, done_passes): `_accd`'s safe steps and, when `want_done`, each
+    stencil's passes begun done (N,) int32 (else None). Done never clears,
+    so a stencil's live passes come first, and number max_iter less these."""
     p4 = p4 - p4.mean(dim=1, keepdim=True)  # common translation changes nothing
     nrm = _norm(p4)  # (N,4)
     l_p = torch.clamp(nrm[:, 0], min=0.0) + torch.maximum(
@@ -53,13 +81,7 @@ def _accd(x4, p4, dist2_fn, slackness, max_iter, t_max=1.0):
     d0_floor = 1e-6 * torch.clamp(d0, min=1e-30)
     t = torch.zeros_like(d0)
     done = no_motion
-    n = int(d0.shape[0])
-    count("ccd.passes", max_iter)
-    count("ccd.pair_passes", n * max_iter)
-    # per pair, the passes it began done; done never clears, so a pair's
-    # live passes come first, and the call's live passes number max_iter
-    # less the least of these
-    done_passes = torch.zeros_like(d0, dtype=torch.int32) if tracing() and n else None
+    done_passes = torch.zeros_like(d0, dtype=torch.int32) if want_done else None
     for _ in range(max_iter):
         if done_passes is not None:
             done_passes += done
@@ -69,11 +91,8 @@ def _accd(x4, p4, dist2_fn, slackness, max_iter, t_max=1.0):
         done_new = done | (step <= d0_floor) | (t >= t_max)
         t = torch.where(done, t, t_new)
         done = done_new
-    if done_passes is not None:
-        count_device("ccd.live_pair_passes", n * max_iter - done_passes.sum())
-        count_device("ccd.live_passes", max_iter - done_passes.min())
     t = torch.where(no_motion, torch.full_like(t, t_max), t)
-    return torch.clamp(t, min=0.0)
+    return torch.clamp(t, min=0.0), done_passes
 
 
 def _pt(y):
@@ -84,14 +103,71 @@ def _ee(y):
     return edge_edge_dist2(y[:, 0], y[:, 1], y[:, 2], y[:, 3])
 
 
+def _check(x4, p4):
+    if x4.dim() != 3 or tuple(x4.shape[1:]) != (4, 3) or p4.shape != x4.shape:
+        raise ValueError(f"accd: x4 {tuple(x4.shape)} and p4 {tuple(p4.shape)} must both "
+                         f"be (N,4,3)")
+    if x4.dtype != p4.dtype or x4.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"accd: x4 {x4.dtype} and p4 {p4.dtype} must share float32 or float64")
+    if x4.device != p4.device:
+        raise ValueError(f"accd: x4 on {x4.device}, p4 on {p4.device}")
+
+
+def _accd_kernel(kind, x4, p4, slackness, max_iter, want_live, t_max=1.0):
+    """The kernel's safe steps (N,) of `kind` ("pt" or "ee") stencils and,
+    when `want_live`, each stencil's live passes (N,) int32 (else None).
+    Raises for non-contiguous x4 or p4 before touching the card. A launch
+    counts in `ccd.kernel_calls` and in the family wrapper's `launches`."""
+    if not (x4.is_contiguous() and p4.is_contiguous()):
+        raise ValueError("accd: x4 and p4 must be contiguous")
+    n = int(x4.shape[0])
+    t = torch.empty((n,), dtype=x4.dtype, device=x4.device)
+    live = torch.empty((n,), dtype=torch.int32, device=x4.device) if want_live else None
+    if n:
+        from ipc_tpu_torch.build import load_kernels
+
+        fn = getattr(load_kernels(),
+                     f"ipc_accd_{kind}_{'f32' if x4.dtype == torch.float32 else 'f64'}")
+        err = fn(x4.data_ptr(), p4.data_ptr(), n, float(slackness), int(max_iter),
+                 float(t_max), t.data_ptr(), None if live is None else live.data_ptr(),
+                 torch.cuda.current_stream(x4.device).cuda_stream)
+        count("ccd.kernel_calls")
+        count_launch(accd_pt if kind == "pt" else accd_ee)
+        if err != 0:
+            raise RuntimeError(f"accd_{kind}: CUDA launch failed with error {err}")
+    return t, live
+
+
+def _route(wrapper, kind, dist2_fn, x4, p4, slackness, max_iter):
+    _check(x4, p4)
+    n = int(x4.shape[0])
+    if n:
+        count("ccd.calls")
+    if x4.device.type == "cpu":
+        return _accd(x4, p4, dist2_fn, slackness, max_iter)
+    if x4.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__}: unsupported device {x4.device}")
+    count("ccd.passes", max_iter)
+    count("ccd.pair_passes", n * max_iter)
+    t, live = _accd_kernel(kind, x4, p4, slackness, max_iter, tracing() and n > 0)
+    if live is not None:
+        count_device("ccd.live_pair_passes", live.sum())
+        count_device("ccd.live_passes", live.max())
+    return t
+
+
 def accd_pt(x4, p4, slackness=0.2, max_iter=64):
     """Safe steps (N,) of point-triangle stencils (p, t0, t1, t2)."""
-    return _accd(x4, p4, _pt, slackness, max_iter)
+    return _route(accd_pt, "pt", _pt, x4, p4, slackness, max_iter)
 
 
 def accd_ee(x4, p4, slackness=0.2, max_iter=64):
     """Safe steps (N,) of edge-edge stencils (a0, a1, b0, b1)."""
-    return _accd(x4, p4, _ee, slackness, max_iter)
+    return _route(accd_ee, "ee", _ee, x4, p4, slackness, max_iter)
+
+
+register(accd_pt)
+register(accd_ee)
 
 
 # ---------------------------------------------------------------------------

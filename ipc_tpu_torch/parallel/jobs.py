@@ -46,11 +46,13 @@ def _sync(device):
 def steps(st, step, s, n):
     """(the state after n steps of `step` from s, [one record per step])
     (module docstring)."""
+    from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
     from ipc_tpu_torch.ops.tet_hv import tet_hv
 
     rows = []
     for _ in range(n):
         ops0, launches0, coll0 = step.operator_applications, tet_hv.launches, step.collectives
+        accd0 = accd_pt.launches + accd_ee.launches
         _sync(st.device)
         t0 = time.perf_counter()
         s, stats = step(s)
@@ -61,6 +63,7 @@ def steps(st, step, s, n):
             stats=dataclasses.asdict(stats), wall_s=wall,
             operator_applications=step.operator_applications - ops0,
             tet_hv_launches=tet_hv.launches - launches0,
+            accd_launches=accd_pt.launches + accd_ee.launches - accd0,
             collectives=step.collectives - coll0, rank_counts=dict(step.rank_counts or {}),
             finite=bool(torch.isfinite(s.x).all() and torch.isfinite(s.v).all()),
             ymin=s.x[:, 1].min().item(), intersection=bool(hit), x=s.x.cpu().numpy()))

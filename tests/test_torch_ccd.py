@@ -2,10 +2,10 @@
 interval branch of SelfContact.ccd_alpha, and the edge-triangle
 intersection test (contact.intersection) against the JAX package.
 
-The cases of tests/test_ccd.py and tests/test_ccd_corpus.py are rebuilt here
-in numpy (head-on, grazing, moving triangle, parallel motion, crossing and
-near-parallel edges, separating motion, no motion, impacts at known t*, a
-tilted resting slide, degenerate stencils). The port's safe steps must equal
+The cases of tests/test_ccd.py and tests/test_ccd_corpus.py are rebuilt in
+numpy in tests/ccd_cases.py (head-on, grazing, moving triangle, parallel
+motion, crossing and near-parallel edges, separating motion, no motion,
+impacts at known t*, a tilted resting slide, degenerate stencils). The port's safe steps must equal
 JAX's to 1e-12 in float64. A seeded fuzz corpus checks the port's own
 guarantee: no sampled point of [0, t] comes closer than the preserved gap.
 """
@@ -16,116 +16,16 @@ import numpy as np
 import pytest
 import torch
 
+from ccd_cases import ee_cases as _ee_cases
+from ccd_cases import pt as _pt
+from ccd_cases import pt_cases as _pt_cases
+from ccd_cases import random_ee_cases as _random_ee_cases
+from ccd_cases import random_pt_cases as _random_pt_cases
 from ipc_tpu.contact import ccd as JCCD
 from ipc_tpu.contact import intersection as JI
 from ipc_tpu_torch.contact import ccd as CCD
 from ipc_tpu_torch.contact import intersection as TI
 from ipc_tpu_torch.ops.distance import edge_edge_dist2, point_triangle_dist2
-
-TRI = [[-1.0, 0, -1], [1, 0, -1], [0, 0, 1.5]]
-
-
-def _pt(p, dp, tri=TRI, dtri=None):
-    x4 = np.vstack([p, tri]).astype(float)
-    p4 = np.vstack([dp, np.zeros((3, 3)) if dtri is None else dtri]).astype(float)
-    return x4, p4
-
-
-def _tilted_slide(tilt_deg):
-    th = np.radians(tilt_deg)
-    R = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1.0]])
-    tri = np.array(TRI) @ R.T
-    nrm = np.cross(tri[1] - tri[0], tri[2] - tri[0])
-    nrm /= np.linalg.norm(nrm)
-    p0 = np.array([0.0, 0.0, 0.1]) @ R.T + 1e-3 * nrm
-    slide = (tri[1] - tri[0]) / np.linalg.norm(tri[1] - tri[0])
-    return _pt(p0, slide * 0.5, tri)
-
-
-def _pt_cases():
-    z = np.zeros((4, 3))
-    cases = [
-        _pt([0, 1.0, 0], [0, -2.0, 0]),  # head-on
-        _pt([1.2, 1.0, 0], [0, -2.0, 0]),  # grazing
-        _pt([0, 0.5, 0.2], [0, 0, 0], TRI, [[0, 1.0, 0]] * 3),  # triangle rises
-        _pt([0, 1.0, 0], [1.0, 0, 0], TRI, [[1.0, 0, 0]] * 3),  # parallel motion
-        _pt([0, 0.5, 0.1], [0, 2.0, 0]),  # separating
-        _pt([0, 0.5, 0.1], [0, 0, 0]),  # no motion
-        (z.copy(), z.copy()),  # all coincident, no motion
-        (z.copy(), np.array([[1.0, 0, 0]] * 4)),  # coincident, rigid motion
-        (np.array([[0, 1.0, 0], [-1, 0, 0], [0, 0, 0], [1, 0, 0]]),
-         np.array([[0, -2.0, 0], [0, 0, 0], [0, 0, 0], [0, 0, 0]])),  # zero-area tri
-        _pt([0, 0.0, 0.2], [0, 1.0, 0]),  # in the plane, moving away
-    ]
-    cases += [_pt([0, 1.0, 0], [0, -1.0 / t, 0]) for t in (0.25, 0.5, 0.9)]  # known t*
-    cases += [_tilted_slide(d) for d in (0.0, 15.0, 40.0)]
-    return cases
-
-
-def _ee_cases():
-    z = np.zeros((4, 3))
-    arr = np.array
-    return [
-        (arr([[-1, 1.0, 0], [1, 1.0, 0], [0, 0, -1], [0, 0, 1]]),
-         arr([[0, -2.0, 0], [0, -2.0, 0], [0, 0, 0], [0, 0, 0]])),  # crossing
-        (arr([[-1, 0.5, 0], [1, 0.5, 0.01], [-1, 0, 0], [1, 0, 0]]),
-         arr([[0, -1.0, 0], [0, -1.0, 0], [0, 0, 0], [0, 0, 0]])),  # near-parallel
-        (arr([[-1, 0.5, 0], [1, 0.5, 0], [0, 0, -1], [0, 0, 1]]),
-         arr([[0, 1.0, 0], [0, 1.0, 0], [0, 0, 0], [0, 0, 0]])),  # separating
-        (z.copy(), z.copy()),
-        (arr([[-1, 0, 0], [1, 0, 0], [0, 1.0, 0], [0, 1.0, 0]]),
-         arr([[0, 0, 0], [0, 0, 0], [0, -2.0, 0], [0, -2.0, 0]])),  # zero-length edge
-        (arr([[-1, 0, 0], [1, 0, 0], [-1, 0.5, 0], [1, 0.5, 0]]),
-         arr([[0, 0, 0], [0, 0, 0], [0, -1.0, 0], [0, -1.0, 0]])),  # parallel, closing
-        (arr([[-2, 0, 0], [-1, 0, 0], [1, 0, 0], [2, 0, 0]]),
-         arr([[1.5, 0, 0], [1.5, 0, 0], [0, 0, 0], [0, 0, 0]])),  # collinear, end to end
-    ]
-
-
-def _random_pt_cases(rng, n):
-    """Aimed impacts, grazers and wild motion across five decades of scale
-    (tests/test_ccd_corpus.py's generator)."""
-    X, P = [], []
-    for i in range(n):
-        scale = 10.0 ** rng.uniform(-3, 2)
-        tri = rng.normal(0, 1, (3, 3)) * scale
-        while np.linalg.norm(np.cross(tri[1] - tri[0], tri[2] - tri[0])) < 1e-8 * scale**2:
-            tri = rng.normal(0, 1, (3, 3)) * scale
-        nrm = np.cross(tri[1] - tri[0], tri[2] - tri[0])
-        nrm /= np.linalg.norm(nrm)
-        target = rng.dirichlet([1.0, 1.0, 1.0]) @ tri
-        p0 = target + 10.0 ** rng.uniform(-3, 0) * scale * nrm
-        if i % 3 == 0:
-            dp, dt = (target - p0) * rng.uniform(1.2, 3.0), rng.normal(0, 0.05 * scale, (3, 3))
-        elif i % 3 == 1:
-            out = target + (tri[i % 3] - target) * rng.uniform(1.01, 1.3)
-            dp, dt = (out - p0) * rng.uniform(1.0, 2.0), rng.normal(0, 0.02 * scale, (3, 3))
-        else:
-            dp, dt = rng.normal(0, scale, 3), rng.normal(0, scale, (3, 3))
-        X.append(np.vstack([p0, tri]))
-        P.append(np.vstack([dp, dt]))
-    return np.stack(X), np.stack(P)
-
-
-def _random_ee_cases(rng, n):
-    X, P = [], []
-    for i in range(n):
-        scale = 10.0 ** rng.uniform(-3, 2)
-        a0, a1 = rng.normal(0, 1, (2, 3)) * scale
-        b0, b1 = rng.normal(0, 1, (2, 3)) * scale
-        if i % 3 == 0:
-            d = (0.5 * (a0 + a1) - 0.5 * (b0 + b1)) * rng.uniform(1.2, 3.0)
-            p4 = np.vstack([np.zeros((2, 3)), np.tile(d, (2, 1))])
-        elif i % 3 == 1:
-            b0 = a0 + np.array([0, 1, 0]) * 0.3 * scale + rng.normal(0, 1e-4 * scale, 3)
-            b1 = a1 + np.array([0, 1, 0]) * 0.3 * scale + rng.normal(0, 1e-4 * scale, 3)
-            p4 = np.vstack([np.zeros((2, 3)), np.tile(np.array([0, -1.0, 0]) * scale, (2, 1))])
-        else:
-            p4 = rng.normal(0, scale, (4, 3))
-        X.append(np.vstack([a0, a1, b0, b1]))
-        P.append(p4)
-    return np.stack(X), np.stack(P)
-
 
 KINDS = {
     "pt": (CCD.accd_pt, JCCD.accd_pt, point_triangle_dist2, _pt_cases),

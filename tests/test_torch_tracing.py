@@ -169,7 +169,7 @@ def test_accd_live_counters_exact():
     obs.set_tracing(False)
     assert torch.equal(t_on, t_off)
     c = obs.collect()["counters"]
-    assert c == {"ccd.passes": 64, "ccd.pair_passes": 5 * 64,
+    assert c == {"ccd.calls": 1, "ccd.passes": 64, "ccd.pair_passes": 5 * 64,
                  "ccd.live_pair_passes": 0 + 1 + 2 + 4 + 6, "ccd.live_passes": 6}
 
 
