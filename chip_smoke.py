@@ -26,8 +26,8 @@ and ends the run with a non-zero exit code (nothing is caught):
      (ipc_tpu_torch/accd_timing.py): the largest point-triangle and
      edge-edge candidate sets of one device step of the twist (n = 100,
      step 0) and of the landing (the boxes at 20, step 8), float32 and
-     float64, |dt| within 1e-5 (f32) / 1e-12 (f64) and every stencil's
-     live passes equal; over each step kernel launches == ACCD calls; the
+     float64, every stencil's safe step equal bit for bit (within 1e-5
+     (f32) / 1e-12 (f64) besides) and its live passes equal; over each step kernel launches == ACCD calls; the
      kernel's and the plain version's device time per call and the bound
      (stencils read once and t written once, at 3.35 TB/s);
   4. ground path: build_scene(n_cells=20, float32, "cuda") -> make_step for
@@ -348,6 +348,7 @@ def accd_vs_plain(device, scenes):
                 what = f"accd_{kind} {name} {scene}"
                 check(r["max_abs_diff"] <= ACCD_LIMIT[name], f"{what} within tolerance")
                 check(r["live_equal"] == 1.0, f"{what}: every stencil's live passes equal")
+                check(r["bit_equal"] == 1.0, f"{what}: every safe step bit for bit")
                 records[(scene, kind, name)] = r
     return records
 

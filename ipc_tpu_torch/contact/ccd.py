@@ -16,6 +16,14 @@ at once in PyTorch, with the same arithmetic. A CUDA tensor never reaches
 it: the kernel launches or the call raises. Each launch counts in the
 wrapper's `launches` (ops/launch_counts).
 
+One order of rounding on every device: the plain version sums each dot
+product as ((0 + 1) + 2) (`dot_ordered`, ops/distance.py) and the mean of
+the four displacements as ((0 + 1) + 2) + 3, times 1/4, takes every square
+root rounded to nearest (`_sqrt`), and the kernel rounds each operation in
+that order, so the CPU, the plain version on the card and the kernel give
+the same bits, and a CCD-clamped step (the scripted prologue's
+`script_scale`) is the same on the CPU and the card.
+
 Counters (utils/observability.py): on the host, always, `ccd.calls` (calls
 with at least one stencil), `ccd.kernel_calls` (kernel launches),
 `ccd.passes` (max_iter per call) and `ccd.pair_passes` (stencils x
@@ -38,17 +46,28 @@ direction (the gradient of the squared distance, by autograd as JAX takes
 it by `jax.grad`), which keeps sliding contacts certified in one test.
 """
 
+import numpy as np
 import torch
 
-from ipc_tpu_torch.ops.distance import cross, edge_edge_dist2, point_triangle_dist2
+from ipc_tpu_torch.ops.distance import (cross, dot_ordered, edge_edge_dist2,
+                                         point_triangle_dist2)
 from ipc_tpu_torch.ops.launch_counts import count_launch, register
 from ipc_tpu_torch.utils.observability import count, count_device, tracing
 
 __all__ = ["accd_pt", "accd_ee", "ti_pt", "ti_ee"]
 
 
+def _sqrt(v):
+    """Square roots rounded to nearest, as CUDA's and the kernel's are:
+    ATen's CPU sqrt misses the nearest value for about 1% of inputs (a
+    vectorised approximation), numpy's does not."""
+    if v.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(v.detach().numpy()))
+    return torch.sqrt(v)
+
+
 def _norm(v):
-    return torch.sqrt((v * v).sum(-1))
+    return _sqrt(dot_ordered(v, v))
 
 
 def _accd(x4, p4, dist2_fn, slackness, max_iter, t_max=1.0):
@@ -68,13 +87,15 @@ def _accd_loop(x4, p4, dist2_fn, slackness, max_iter, t_max, want_done):
     """(t, done_passes): `_accd`'s safe steps and, when `want_done`, each
     stencil's passes begun done (N,) int32 (else None). Done never clears,
     so a stencil's live passes come first, and number max_iter less these."""
-    p4 = p4 - p4.mean(dim=1, keepdim=True)  # common translation changes nothing
+    # common translation changes nothing
+    mean = (((p4[:, 0] + p4[:, 1]) + p4[:, 2]) + p4[:, 3]) * 0.25
+    p4 = p4 - mean[:, None]
     nrm = _norm(p4)  # (N,4)
     l_p = torch.clamp(nrm[:, 0], min=0.0) + torch.maximum(
         torch.maximum(nrm[:, 1], nrm[:, 2]), nrm[:, 3])
     l_p_ee = torch.maximum(nrm[:, 0], nrm[:, 1]) + torch.maximum(nrm[:, 2], nrm[:, 3])
     l_p = torch.maximum(l_p, l_p_ee)  # conservative for both layouts
-    d0 = torch.sqrt(torch.clamp(dist2_fn(x4), min=0.0))
+    d0 = _sqrt(torch.clamp(dist2_fn(x4), min=0.0))
     g = slackness * d0
     no_motion = l_p <= 0.0
     l_safe = torch.clamp(l_p, min=1e-30)
@@ -85,7 +106,7 @@ def _accd_loop(x4, p4, dist2_fn, slackness, max_iter, t_max, want_done):
     for _ in range(max_iter):
         if done_passes is not None:
             done_passes += done
-        d = torch.sqrt(torch.clamp(dist2_fn(x4 + t[:, None, None] * p4), min=0.0))
+        d = _sqrt(torch.clamp(dist2_fn(x4 + t[:, None, None] * p4), min=0.0))
         step = 0.9 * (d - g) / l_safe
         t_new = torch.clamp(t + step, max=t_max)
         done_new = done | (step <= d0_floor) | (t >= t_max)
@@ -96,11 +117,11 @@ def _accd_loop(x4, p4, dist2_fn, slackness, max_iter, t_max, want_done):
 
 
 def _pt(y):
-    return point_triangle_dist2(y[:, 0], y[:, 1], y[:, 2], y[:, 3])
+    return point_triangle_dist2(y[:, 0], y[:, 1], y[:, 2], y[:, 3], dot=dot_ordered)
 
 
 def _ee(y):
-    return edge_edge_dist2(y[:, 0], y[:, 1], y[:, 2], y[:, 3])
+    return edge_edge_dist2(y[:, 0], y[:, 1], y[:, 2], y[:, 3], dot=dot_ordered)
 
 
 def _check(x4, p4):

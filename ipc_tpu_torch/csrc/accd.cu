@@ -25,10 +25,13 @@
 // Rounding: every product, sum, quotient and root is an _rn intrinsic in
 // the plain version's order, so nvcc fuses no multiply-add that ATen's
 // separate kernels do not (the library's flags stay as they are; tet_hv.cu
-// shares them). Sums of three (the `(a * b).sum(-1)` of a dot product or a
-// norm) follow ATen's CUDA reduction over a contiguous last axis of 3: two
-// lanes, (v0 + v2) + v1. The mean of the four points follows its reduction
-// over a strided axis: one thread, ((v0 + v1) + v2) + v3, times 1/4.
+// shares them). The plain version writes its sums out in one order on
+// every device, and the kernel takes it: a dot product or a norm as
+// (v0 + v1) + v2 (`dot_ordered`, ops/distance.py, which ATen's CPU sum
+// matches and its CUDA sum, (v0 + v2) + v1, does not), the mean of the four
+// displacements as ((v0 + v1) + v2) + v3, times 1/4. So the kernel, the
+// plain version on the card and the plain version on the CPU agree bit for
+// bit, and with them a CCD-clamped scripted step.
 //
 // What bounds it on this card: not bytes. A pair reads 96 B in f32 (192 B
 // in f64: x4 and p4) and writes t (and, when asked, its live-pass count);
@@ -74,10 +77,10 @@ __device__ __forceinline__ V3<T> vsub(V3<T> a, V3<T> b) {
   return {R<T>::sub(a.x, b.x), R<T>::sub(a.y, b.y), R<T>::sub(a.z, b.z)};
 }
 
-// (a * b).sum(-1) as ATen's CUDA reduction sums a contiguous axis of 3
+// dot_ordered: (x + y) + z
 template <typename T>
 __device__ __forceinline__ T dot(V3<T> a, V3<T> b) {
-  return R<T>::add(R<T>::add(R<T>::mul(a.x, b.x), R<T>::mul(a.z, b.z)), R<T>::mul(a.y, b.y));
+  return R<T>::add(R<T>::add(R<T>::mul(a.x, b.x), R<T>::mul(a.y, b.y)), R<T>::mul(a.z, b.z));
 }
 
 template <typename T>

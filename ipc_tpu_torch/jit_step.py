@@ -40,7 +40,11 @@ docstring), not the host path's:
     pull -sqrt(m) lam.(x - target) + rho/2 m |x - target|^2 on; the mode
     ends when the DBC rows complete their motion (or after 100 iterations,
     or on a stalled line search, which ends the episode but not the loop)
-    and the remaining iterations run projected, as in the JAX carry.
+    and the remaining iterations run projected, as in the JAX carry. Their
+    PCG warm start has zero DBC rows, as the host path's and the
+    reference's directions have: the JAX loop carries the AL direction's
+    rows into them, so its first projected line search moves the held
+    handles on along it and fails, and the step ends unconverged.
 
 The three nested `lax.while_loop`s (Newton, line search, PCG) are Python
 loops. Each reads one value back to the host per iteration: the PCG
@@ -56,9 +60,14 @@ in it `script` (the scripted prologue), `warm_start`, `kappa_init`,
 iteration entered (`k=`; the converged one included) with `search_dir`,
 `step_bound`, `broadphase`, `ccd`, `active_set`, `line_search` (its
 `trial`s, `trial=`), `kappa_double` and `al_update` inside, and
-`epilogue`; each read is a `host_read` leaf. Counters: `newton.iters`
-(iterations that took a line search) and `linesearch.trials` (energy
-evaluations at trial points).
+`epilogue`; each read is a `host_read` leaf. In a `newton` span of an AL
+iteration everything after the read of the AL mode is one `al_iter` span,
+so those iterations' host time sums by name. Counters: `newton.iters` (iterations that took a
+line search), `linesearch.trials` (energy evaluations at trial points),
+and the AL's `al.iters` (its iterations), `al.episodes` (episodes
+started) and how each ended: `al.completed` (the move completed),
+`al.stalled` (a stalled line search) or `al.capped` (iteration 100), all
+from values the loop already reads.
 
 The per-tet Hessian-vector product of every PCG iteration goes through
 ops/tet_hv.py: the CUDA kernel for CUDA tensors, its plain version for CPU
@@ -91,7 +100,7 @@ mesh-sequence scripts (ValueError, as in the JAX package).
 """
 
 import math
-from contextlib import nullcontext
+from contextlib import ExitStack, nullcontext
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -358,18 +367,33 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
             lam = torch.zeros((al_verts.shape[0], 3), dtype=dtype, device=device)
             lastmv = zero
         al_iters = 0
+        al_open = False  # an AL episode has started and not yet ended
         while k < max_newton:
-            with span("newton", k=k):
+            with span("newton", k=k), ExitStack() as in_al:
                 if torch.is_tensor(al):
                     al = host_read("newton.al", al)
+                    if al and not al_open:
+                        count("al.episodes")
+                        al_open = True
+                    elif not al and al_open:
+                        # the last AL iteration finished it: the move
+                        # completed, or iteration 100 ended the mode
+                        count("al.capped" if k > 100 else "al.completed")
+                        al_open = False
                 al_in = al
                 if al_in:
+                    in_al.enter_context(span("al_iter"))
                     alw = dict(w=rho, lam=lam, target=al0["target"], verts=al_verts,
                                m=al_m, sqrtm=al_sqrtm)
                     dbc_t, dbc_sv_t = no_dbc, no_dbc_sv  # DBC rows unprojected
                 else:
                     alw, dbc_t, dbc_sv_t = None, dbc, dbc_sv
-                # PCG warm start from the previous Newton direction
+                # PCG warm start from the previous Newton direction. A
+                # projected iteration after the AL's starts from it with the
+                # DBC rows zeroed: PCG leaves the rows of its start as they
+                # are, and the AL's rows would move the held handles again
+                if al0 is not None and not al_in:
+                    dx = masked(dbc[:, None], dx)
                 dx, _, pcg_iters, active_count = T.search_dir(
                     x, x_tilde, kappa, dHat, cand, fric, dx, Ainv_c, damp, fext, hsD, alw,
                     dbc_t)
@@ -442,6 +466,10 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
                     # a stalled line search also ends the episode
                     al = False if stalled else ~finished
                     al_iters += 1
+                    count("al.iters")
+                    if stalled:
+                        count("al.stalled")
+                        al_open = False
                 x = x_new
                 if sc is not None:
                     cand = cand_sweep  # candidate carrying

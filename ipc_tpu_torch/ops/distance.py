@@ -37,6 +37,7 @@ __all__ = [
     "edge_edge_dist2",
     "dtype_PT",
     "dtype_EE",
+    "dot_ordered",
     "ee_cross_sq_norm",
     "eps_x_ee",
     "mollifier_ee",
@@ -50,6 +51,15 @@ CTYPE_EE = 3
 
 def dot(a, b):
     return (a * b).sum(-1)
+
+
+def dot_ordered(a, b):
+    """dot(a, b) of 3-vectors summed as ((0 + 1) + 2) on every device: the
+    order of ATen's CPU sum, where its CUDA sum takes (0 + 2) + 1. The
+    plain ACCD (contact/ccd.py) computes with it, so that the CPU, the card
+    and ACCD's kernel (csrc/accd.cu) round alike."""
+    p = a * b
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
 
 
 def cross(a, b):
@@ -79,24 +89,24 @@ def select(code, branches):
 # ---------------------------------------------------------------------------
 
 
-def d_PP(p0, p1):
+def d_PP(p0, p1, dot=dot):
     d = p0 - p1
     return dot(d, d)
 
 
-def d_PE(p, e0, e1):
+def d_PE(p, e0, e1, dot=dot):
     e = e1 - e0
     c = cross(e, p - e0)
     return _safe_div(dot(c, c), dot(e, e))
 
 
-def d_PT(p, t0, t1, t2):
+def d_PT(p, t0, t1, t2, dot=dot):
     n = cross(t1 - t0, t2 - t0)
     q = dot(p - t0, n)
     return _safe_div(q * q, dot(n, n))
 
 
-def d_EE(a0, a1, b0, b1):
+def d_EE(a0, a1, b0, b1, dot=dot):
     n = cross(a1 - a0, b1 - b0)
     q = dot(a0 - b0, n)
     return _safe_div(q * q, dot(n, n))
@@ -121,22 +131,24 @@ def point_edge_dist2(p, e0, e1):
     return dot(d, d)
 
 
-def point_triangle_dist2(p, t0, t1, t2):
-    """Region-aware squared point-triangle distance via the dType code."""
-    return select(dtype_PT(p, t0, t1, t2), [
-        d_PP(p, t0), d_PP(p, t1), d_PP(p, t2),
-        d_PE(p, t0, t1), d_PE(p, t1, t2), d_PE(p, t2, t0),
-        d_PT(p, t0, t1, t2),
+def point_triangle_dist2(p, t0, t1, t2, dot=dot):
+    """Region-aware squared point-triangle distance via the dType code;
+    `dot` sums every dot product (dot_ordered for a fixed order)."""
+    return select(dtype_PT(p, t0, t1, t2, dot), [
+        d_PP(p, t0, dot), d_PP(p, t1, dot), d_PP(p, t2, dot),
+        d_PE(p, t0, t1, dot), d_PE(p, t1, t2, dot), d_PE(p, t2, t0, dot),
+        d_PT(p, t0, t1, t2, dot),
     ])
 
 
-def edge_edge_dist2(a0, a1, b0, b1):
-    """Region-aware squared edge-edge distance via the dType code."""
-    return select(dtype_EE(a0, a1, b0, b1), [
-        d_PP(a0, b0), d_PP(a0, b1), d_PE(a0, b0, b1),
-        d_PP(a1, b0), d_PP(a1, b1), d_PE(a1, b0, b1),
-        d_PE(b0, a0, a1), d_PE(b1, a0, a1),
-        d_EE(a0, a1, b0, b1),
+def edge_edge_dist2(a0, a1, b0, b1, dot=dot):
+    """Region-aware squared edge-edge distance via the dType code; `dot`
+    as in point_triangle_dist2."""
+    return select(dtype_EE(a0, a1, b0, b1, dot), [
+        d_PP(a0, b0, dot), d_PP(a0, b1, dot), d_PE(a0, b0, b1, dot),
+        d_PP(a1, b0, dot), d_PP(a1, b1, dot), d_PE(a1, b0, b1, dot),
+        d_PE(b0, a0, a1, dot), d_PE(b1, a0, a1, dot),
+        d_EE(a0, a1, b0, b1, dot),
     ])
 
 
@@ -145,7 +157,7 @@ def edge_edge_dist2(a0, a1, b0, b1):
 # ---------------------------------------------------------------------------
 
 
-def _edge_region_params(p, e0, e1, n):
+def _edge_region_params(p, e0, e1, n, dot=dot):
     e = e1 - e0
     out = cross(e, n)
     r = p - e0
@@ -160,13 +172,13 @@ def _code(*pairs, default):
     return out
 
 
-def dtype_PT(p, t0, t1, t2):
+def dtype_PT(p, t0, t1, t2, dot=dot):
     """Closest-point type of point vs triangle: 0,1,2 = PP with t0/t1/t2;
     3,4,5 = PE with (t0,t1)/(t1,t2)/(t2,t0); 6 = interior PT."""
     n = cross(t1 - t0, t2 - t0)
-    ta, sa = _edge_region_params(p, t0, t1, n)
-    tb, sb = _edge_region_params(p, t1, t2, n)
-    tc, sc = _edge_region_params(p, t2, t0, n)
+    ta, sa = _edge_region_params(p, t0, t1, n, dot)
+    tb, sb = _edge_region_params(p, t1, t2, n, dot)
+    tc, sc = _edge_region_params(p, t2, t0, n, dot)
     in_a = (ta > 0.0) & (ta < 1.0) & (sa >= 0.0)
     in_b = (tb > 0.0) & (tb < 1.0) & (sb >= 0.0)
     in_c = (tc > 0.0) & (tc < 1.0) & (sc >= 0.0)
@@ -178,7 +190,7 @@ def dtype_PT(p, t0, t1, t2):
                  default=6)
 
 
-def dtype_EE(a0, a1, b0, b1):
+def dtype_EE(a0, a1, b0, b1, dot=dot):
     """Closest-point type of edge (a0,a1) vs edge (b0,b1): 0 = PP a0b0,
     1 = PP a0b1, 2 = PE a0-(b0,b1), 3 = PP a1b0, 4 = PP a1b1,
     5 = PE a1-(b0,b1), 6 = PE b0-(a0,a1), 7 = PE b1-(a0,a1), 8 = EE.

@@ -24,7 +24,10 @@ test_accd_conservative_on_seeded_fuzz: no sampled point of [0, t] closer
 than the preserved gap 0.2 d0, less 1024 ulps of the stencil's largest
 coordinate (the float32 distance of near-parallel edges is that coarse).
 Over each of those device steps `ccd.kernel_calls == ccd.calls`, and the
-wrappers count each launch.
+wrappers count each launch. On the hand-made cases and the fuzz the kernel,
+the plain version on the card and the plain version on the CPU agree bit
+for bit, safe steps and live passes: all three round in one order
+(contact/ccd.py), so a CCD-clamped step is the same on both devices.
 
 The module imports no JAX, so the card runs it where only PyTorch is
 installed: python -m pytest --noconftest -m cuda tests/test_torch_accd_kernel.py
@@ -181,6 +184,28 @@ def test_kernel_on_the_seeded_fuzz(cuda_device, kind, dtype):
     slack = _closest_along(dist2, Xd, Pd, td) - (0.2 * d0 - 1024 * torch.finfo(dtype).eps * m)
     bad = (td > 0) & (slack < 0)
     assert not bool(bad.any()), torch.nonzero(bad)[:5].flatten().tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_matches_the_cpu_bit_for_bit(cuda_device, kind, dtype):
+    Xn, Pn, _ = fuzz(kind, FUZZ_N, FUZZ_SEED)
+    Xc, Pc = _cases(kind, dtype)
+    X = torch.cat([Xc, torch.as_tensor(Xn).to(dtype)])
+    P = torch.cat([Pc, torch.as_tensor(Pn).to(dtype)])
+    t_cpu, live_cpu = plain_live(kind, X, P)
+    Xg, Pg = X.to(cuda_device), P.to(cuda_device)
+    t_card, live_card = plain_live(kind, Xg, Pg)
+    t, live = CCD._accd_kernel(kind, Xg, Pg, 0.2, 64, True)
+    bits = BITS[dtype]
+    for what, (tt, ll) in {"kernel": (t, live), "plain on the card": (t_card, live_card)}.items():
+        tt, ll = tt.cpu(), ll.cpu()
+        same = tt.view(bits) == t_cpu.view(bits)
+        print(f"[accd] {kind} {dtype} {what} vs the CPU: n={X.shape[0]} bit-equal "
+              f"{float(same.double().mean()):.6f}")
+        assert bool(same.all()), (what, torch.nonzero(~same)[:5].flatten().tolist())
+        assert torch.equal(ll, live_cpu), what
 
 
 @pytest.fixture(scope="module")

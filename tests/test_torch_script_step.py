@@ -22,7 +22,12 @@ velocities) within 1e-12.
   which slides along y (ACO squashshear: the moving plane's offset in
   every barrier term, its displacement in the friction terms);
 * blocked_press: a scripted press blocked by contact, which the moving-DBC
-  augmented Lagrangian completes (tests/test_mdbc_al.py).
+  augmented Lagrangian completes (tests/test_mdbc_al.py). Its projected
+  iterations after the AL start PCG with the DBC rows zeroed in the port;
+  JAX runs it through tests/jax_al_step.py, which starts them so too.
+  That loop without the zeroing is JAX's fused step bit for bit, and the
+  port's AL episode (its iterations, script_scale and kappa) is held to
+  the unmodified fused step from the same states.
 """
 
 from dataclasses import replace
@@ -40,6 +45,7 @@ from ipc_tpu_torch import mesh as PM, scripting as PSCR, timestepper as PT
 from ipc_tpu_torch.contact import halfspace as PH, pipeline as PPL
 from ipc_tpu_torch.convert import state_from_numpy
 from ipc_tpu_torch.jit_step import make_step
+from jax_al_step import jax_al_step
 
 JAX = (JM, JSCR, JT, JH, JPL)
 PORT = (PM, PSCR, PT, PH, PPL)
@@ -112,7 +118,7 @@ def _jax_state(template, arrays):
 def scene_run(request):
     name = request.param
     jst = build(JAX, name)
-    jstep = make_jit_step(jst, donate=False)
+    jstep = jax_al_step(jst) if name == "blocked_press" else make_jit_step(jst, donate=False)
     template = replace(jst.initial_state(), aux=j_initial_aux(jst))
     s = template
     rows = []
@@ -176,3 +182,29 @@ def test_scripted_scenes_reach_their_branches(scene_run):
         assert all(s.script_scale < 1.0 for s in stats)  # the press is blocked
         assert sum(s.al_iters for s in stats) > 0
         assert x[len(x) // 2:, 1].min() < x0[len(x) // 2:, 1].min() - 0.02
+
+
+@pytest.mark.parametrize("scene_run", ["blocked_press"], indirect=True)
+def test_jax_al_step_is_the_fused_jax_step(scene_run):
+    """On the blocked press, tests/jax_al_step.py without its zeroing gives
+    make_jit_step's fused result bit for bit (x, v and every count), and
+    the port's AL episode from the same states matches that unmodified
+    step: AL iterations, script_scale and kappa. Only the projected
+    iterations after the AL, which the zeroing changes, are held to the
+    patched loop (test_scripted_step_matches_jax_float64)."""
+    name, _, template, rows, out = scene_run
+    jst = build(JAX, name)
+    fused, burst = make_jit_step(jst, donate=False), jax_al_step(jst, zero_dbc=False)
+    for i, (r, (_, pstats)) in enumerate(zip(rows, out)):
+        s = _jax_state(template, r["pre"])
+        fs, fst = fused(s)
+        bs, bst = burst(s)
+        for k in ("x", "x_prev", "v", "a"):
+            np.testing.assert_array_equal(np.asarray(getattr(bs, k)), np.asarray(getattr(fs, k)))
+        fstats = {k: np.asarray(getattr(fst, k)).item() for k in fst.__dataclass_fields__}
+        for k, v in fstats.items():
+            np.testing.assert_array_equal(np.asarray(getattr(bst, k)).item(), v, err_msg=k)
+        assert fstats["al_iters"] > 0, i
+        assert pstats.al_iters == fstats["al_iters"], i
+        assert pstats.script_scale == pytest.approx(fstats["script_scale"], rel=1e-12, abs=0)
+        np.testing.assert_allclose(pstats.kappa, fstats["kappa"], rtol=1e-12)
