@@ -29,7 +29,17 @@ and ends the run with a non-zero exit code (nothing is caught):
      float64, every stencil's safe step equal bit for bit (within 1e-5
      (f32) / 1e-12 (f64) besides) and its live passes equal; over each step kernel launches == ACCD calls; the
      kernel's and the plain version's device time per call and the bound
-     (stencils read once and t written once, at 3.35 TB/s);
+     (stencils read once and t written once, at 3.35 TB/s). Then the grid
+     broad phase's walk kernel (csrc/grid_pairs.cu) against its plain
+     version `_run_plain` on the card (ipc_tpu_torch/grid_timing.py): the
+     largest grid call of one device step of the twist (n = 100, step 0)
+     and of the landing (step 8), float32 and float64, every family's
+     pair array equal element for element; over each step
+     broadphase.kernel_calls == broadphase.calls, one launch (the count
+     pass) per family of each call and one more (the write pass) per
+     family that keeps a grid pair, and one host read per call;
+     the walk's device time, the whole call's wall time through the
+     kernel and through the plain version, and the bytes read once;
   4. ground path: build_scene(n_cells=20, float32, "cuda") -> make_step for
      3 steps (96,000 tets; ground contact and friction, no self-contact).
      Counts are zeroed just before: the Hv kernel must have launched once
@@ -202,20 +212,24 @@ first, alone on the card; then the references 5, 9 and 11, with 20's sweep
 in one child process, 14 in another and 16, 17 and 19 in a third beside
 them.
 
-The line before the last is the kernels record: tet_hv and accd (the
-ACCD wrappers' launches summed), each with its launches over the contact,
-twist, driver, host, QP, sharded and battery paths (counts zeroed before
-each path; the sharded one summed over its ranks; repeats and restarts not
-counted; every path must launch both), tet_hv timed at the driver shape,
-accd at the landing's candidate sets in float32 (its ms, plain_ms and
-bound_ms the two families' sum, its n per family), the last line
+The line before the last is the kernels record: tet_hv, accd (the
+ACCD wrappers' launches summed) and grid_pairs, each with its launches over
+the contact, twist, driver, host, QP, sharded and battery paths (counts
+zeroed before each path; the sharded one summed over its ranks; repeats
+and restarts not counted; every path must launch all three), tet_hv timed
+at the driver shape, accd at the landing's candidate sets in float32 (its
+ms, plain_ms and bound_ms the two families' sum, its n per family),
+grid_pairs at the landing's largest grid call in float32 (ms the walk's
+device time, call_ms and plain_ms the whole call's through the kernel and
+the plain version, rows walked and pairs kept), the last line
 {"ok": true, "device": {...}}. Without a CUDA device the run fails in
 phase 1 and prints neither.
 
 `python3 chip_smoke.py --only qp_path,qp_reference,diagnostic` runs the
 device and build phases and the phases named (a check of a few phases;
 its kernels line counts only their launches and times tet_hv at the
-driver shape and ACCD at the landing's candidate sets alone; qp_path alone first runs the contact scene's 8
+driver shape, ACCD at the landing's candidate sets and the grid walk at
+its largest grid call alone; qp_path alone first runs the contact scene's 8
 device steps to reach its start; battery_path runs its run_one and its
 sweep).
 """
@@ -233,32 +247,40 @@ def check(cond, what):
 
 
 def _zero_launches():
-    """tet_hv's and the ACCD wrappers' launch counts set to 0 before a path."""
+    """tet_hv's, the ACCD wrappers' and the grid walk's launch counts set to
+    0 before a path."""
     from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
+    from ipc_tpu_torch.contact.spatial_hash import grid_pairs
     from ipc_tpu_torch.ops.tet_hv import tet_hv
 
-    tet_hv.launches = accd_pt.launches = accd_ee.launches = 0
+    tet_hv.launches = accd_pt.launches = accd_ee.launches = grid_pairs.launches = 0
 
 
-def _accd_counts():
-    """(accd_pt's, accd_ee's) launches: one per ccd_alpha call and family."""
+def _kernel_counts():
+    """(accd_pt's, accd_ee's, grid_pairs') launches: one per ccd_alpha call
+    and family; one or two per grid call and family (count and write passes)."""
     from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
+    from ipc_tpu_torch.contact.spatial_hash import grid_pairs
 
-    return accd_pt.launches, accd_ee.launches
+    return accd_pt.launches, accd_ee.launches, grid_pairs.launches
 
 
-def _restore_accd_counts(counts):
-    """Puts _accd_counts() back after a repeat, which is not a main-path run."""
+def _restore_kernel_counts(counts):
+    """Puts _kernel_counts() back after a repeat, which is not a main-path run."""
     from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
+    from ipc_tpu_torch.contact.spatial_hash import grid_pairs
 
-    accd_pt.launches, accd_ee.launches = counts
+    accd_pt.launches, accd_ee.launches, grid_pairs.launches = counts
 
 
-def _path_launches(tag, hv, accd):
-    """{"tet_hv": hv, "accd": accd} of one path, accd checked to have run."""
-    print(f"[{tag}] accd launches={accd}", flush=True)
+def _path_launches(tag, hv, accd_pt, accd_ee, grid):
+    """{"tet_hv": hv, "accd": accd_pt + accd_ee, "grid_pairs": grid} of one
+    path, ACCD and the grid walk checked to have run."""
+    accd = accd_pt + accd_ee
+    print(f"[{tag}] accd launches={accd} grid_pairs launches={grid}", flush=True)
     check(accd > 0, f"ACCD launched on the {tag} path")
-    return {"tet_hv": hv, "accd": accd}
+    check(grid > 0, f"the grid walk kernel launched on the {tag} path")
+    return {"tet_hv": hv, "accd": accd, "grid_pairs": grid}
 
 
 def phase_device():
@@ -312,7 +334,8 @@ def phase_kernel_vs_plain(device):
             check(r["library_err"] <= r["limit"], f"{what}: the yardstick computes the same map")
             check(r["tetless_zero"] in (None, True), f"{what}: tet-less rows are exact zeros")
             records[(scene, n_cells, r["dtype"])] = r
-    return records, accd_vs_plain(device, ("twist", "boxes"))
+    return records, accd_vs_plain(device, ("twist", "boxes")), grid_vs_plain(
+        device, ("twist100", "boxes"))
 
 
 ACCD_LIMIT = {"float32": 1e-5, "float64": 1e-12}
@@ -350,6 +373,42 @@ def accd_vs_plain(device, scenes):
                 check(r["live_equal"] == 1.0, f"{what}: every stencil's live passes equal")
                 check(r["bit_equal"] == 1.0, f"{what}: every safe step bit for bit")
                 records[(scene, kind, name)] = r
+    return records
+
+
+def grid_vs_plain(device, scenes):
+    """The grid walk kernel against its plain version on the card (module
+    docstring, phase 3) on the largest grid call of one device step of each
+    of `scenes` (grid_timing.SCENES). Returns {(scene, dtype): record of
+    grid_timing.measure}."""
+    import torch
+
+    from ipc_tpu_torch.grid_timing import largest, launches_of, measure, parts, scene_calls
+
+    records = {}
+    for scene in scenes:
+        calls, counters = scene_calls(scene, device)
+        families = sum(len(parts(c)[0]) for c in calls)
+        print(f"[kernel] grid_pairs {scene} step: {len(calls)} grid calls, {families} "
+              f"families, counters {json.dumps(counters)}")
+        check(counters["broadphase.kernel_calls"] == counters["broadphase.calls"] == len(calls)
+              > 0, f"grid_pairs {scene}: every grid call ran the kernel")
+        check(counters["launches"] == launches_of(calls),
+              f"grid_pairs {scene}: a count pass per family, a write pass per family that "
+              f"keeps a pair")
+        check(counters["reads"] == {"broadphase.counts": len(calls)},
+              f"grid_pairs {scene}: one host read per grid call")
+        call = largest(calls)
+        for dtype in (torch.float32, torch.float64):
+            r = measure(call, dtype)
+            name = str(dtype).replace("torch.", "")
+            print(f"[kernel] grid_pairs {scene} {name}: rows={r['rows']} kept={r['kept']} "
+                  f"equal={r['equal']} walk_ms={r['walk_ms']:.5f} call_ms={r['call_ms']:.3f} "
+                  f"plain_ms={r['plain_ms']:.3f} bytes={r['bytes']} "
+                  f"bound_us={r['bound_us']:.3f} row_bytes={r['row_bytes']}", flush=True)
+            check(r["equal"], f"grid_pairs {name} {scene}: the plain version's pairs, "
+                              f"element for element")
+            records[(scene, name)] = r
     return records
 
 
@@ -535,7 +594,7 @@ def phase_contact_path(device):
     check(saw_fric, "self-friction pairs were captured")
     check(launches > 0, "tet_hv launched on the contact path")
     check(launches == ops, "one tet_hv launch per operator application (contact)")
-    counts = _path_launches("contact", launches, sum(_accd_counts()))
+    counts = _path_launches("contact", launches, *_kernel_counts())
     _bitwise_repeat(step, post_impact, "contact")
     return counts, (st, qp_lead)
 
@@ -603,7 +662,7 @@ def phase_qp_path(device, lead, n_steps=2):
         check(hv == ops, "one tet_hv launch per operator application (QP path)")
         repeat = (state, nxt)
         state = nxt
-    launches, accd = tet_hv.launches, _accd_counts()
+    launches, kernels = tet_hv.launches, _kernel_counts()
     check(launches == q.operator_applications - ops0 > 0, "tet_hv launched on the QP path")
     print(f"[qp] {n_steps} steps in {total:.3f} s ({total / n_steps:.4f} s per step); "
           f"tet_hv launches={launches}", flush=True)
@@ -627,8 +686,8 @@ def phase_qp_path(device, lead, n_steps=2):
           "the device ran one tet_hv launch per counted launch and operator application, "
           "graph replays included (QP path)")
     tet_hv.launches = launches  # the repeat's launches are not the main run's
-    _restore_accd_counts(accd)
-    return _path_launches("qp", launches, sum(accd))
+    _restore_kernel_counts(kernels)
+    return _path_launches("qp", launches, *kernels)
 
 
 def _traced_second_call(admm_qp, q, traced):
@@ -795,7 +854,7 @@ def phase_twist_path(device, n=100, n_steps=12):
           f"syncs={syncs} ({syncs / n_steps:.1f} per step)")
     check(launches > 0, "tet_hv launched on the twist path")
     check(launches == ops, "one tet_hv launch per operator application (twist)")
-    counts = _path_launches("twist", launches, sum(_accd_counts()))
+    counts = _path_launches("twist", launches, *_kernel_counts())
     # the handles against the exact rotation of their rest positions
     V, _ = mat(n, size=1.0)
     x = state.x.double().cpu().numpy()
@@ -1189,7 +1248,7 @@ def phase_driver_path(device, n_cells=20):
     t0 = time.perf_counter()
     check(cli_main([scene, "-o", out] + args) == 0, "the CLI run exits 0")
     wall = time.perf_counter() - t0
-    launches, accd = tet_hv.launches, _accd_counts()
+    launches, kernels = tet_hv.launches, _kernel_counts()
     names = ["config.txt", "iterStats.txt", "sysE.txt", "sysM.txt", "sysL.txt", "info.txt",
              "resultsStats.txt"] + [f"{a}{k}.{b}" for k in (5, 10)
                                     for a, b in (("status", "npz"), ("surf", "obj"))]
@@ -1264,8 +1323,8 @@ def phase_driver_path(device, n_cells=20):
           f"status10 bitwise equal={same}")
     check(same, "a restart from status5 reproduces status10 bitwise")
     tet_hv.launches = launches  # the restart's launches are not the main run's
-    _restore_accd_counts(accd)
-    return _path_launches("driver", launches, sum(accd))
+    _restore_kernel_counts(kernels)
+    return _path_launches("driver", launches, *kernels)
 
 
 def _sync(device):
@@ -1337,7 +1396,7 @@ def phase_host_path(device, n_cells=20, n_steps=10):
         wall = time.perf_counter() - t0
     finally:
         IPCStepper.step = host_step
-    launches, accd = tet_hv.launches, _accd_counts()
+    launches, kernels = tet_hv.launches, _kernel_counts()
     with open(os.path.join(out, "info.txt")) as f:
         info = json.load(f)
     stats = info["step_stats"]
@@ -1377,8 +1436,8 @@ def phase_host_path(device, n_cells=20, n_steps=10):
     print(f"[host] one step twice from status5.npz: bitwise_equal={same}")
     check(same, "host step bitwise repeatable")
     tet_hv.launches = launches  # the repeat's launches are not the main run's
-    _restore_accd_counts(accd)
-    return _path_launches("host", launches, sum(accd))
+    _restore_kernel_counts(kernels)
+    return _path_launches("host", launches, *kernels)
 
 
 def _host_snapshot(st):
@@ -1631,10 +1690,10 @@ def _sharded_job(rank, world, device, spec):
         s, last = jobs.steps(st, step, pre, 1)
         out["rows"] += rows + last
         if spec.get("repeat_last"):
-            launches0, accd0 = tet_hv.launches, _accd_counts()
+            launches0, kernels0 = tet_hv.launches, _kernel_counts()
             again, _ = step(pre)
             tet_hv.launches = launches0  # a comparison, not a main-path run
-            _restore_accd_counts(accd0)
+            _restore_kernel_counts(kernels0)
             out["rows"][-1]["repeat_equal"] = bool(torch.equal(again.x, s.x))
     return dict(jobs.rank_info(st, rank), **out)
 
@@ -1711,7 +1770,8 @@ def phase_sharded_path(device, lead, ranks=2):
         print(f"[sharded] rank {o['rank']}: step 9 twice from one state: bitwise_equal={rep}")
         check(rep, "sharded step bitwise repeatable")
     return _path_launches("sharded", sum(r["tet_hv_launches"] for o in outs for r in o["rows"]),
-                          sum(r["accd_launches"] for o in outs for r in o["rows"]))
+                          sum(r["accd_launches"] for o in outs for r in o["rows"]), 0,
+                          sum(r["grid_launches"] for o in outs for r in o["rows"]))
 
 
 def _sharded_cpu_case(patterns=6):
@@ -1842,7 +1902,7 @@ def phase_battery_path(device, n=100, n_steps=4):
     rec = paper_battery.run_one(scene, n_steps, 240.0, dtype=torch.float32, use_jit=True,
                                 device=device, counts=counts)
     wall = time.perf_counter() - t0
-    launches, accd = tet_hv.launches, _accd_counts()
+    launches, kernels = tet_hv.launches, _kernel_counts()
     print(f"[battery] record {json.dumps(rec)}")
     print(f"[battery] matTwist{n}: {rec['tets']} tets, {rec['verts']} verts, path "
           f"{rec['path']}, {rec['steps']} steps in {rec['secs']} s "
@@ -1858,7 +1918,7 @@ def phase_battery_path(device, n=100, n_steps=4):
           "the battery ran the device step for every step at full width")
     check(launches > 0 and launches == counts["operator_applications"],
           "one tet_hv launch per operator application (battery)")
-    return _path_launches("battery", launches, sum(accd))
+    return _path_launches("battery", launches, *kernels)
 
 
 STALL_SCENE = """energy NH
@@ -2027,13 +2087,14 @@ def main(argv=None):
     child = None
     try:
         # the timed phases first, alone on the card
-        launches = {"tet_hv": 0, "accd": 0}
+        launches = {"tet_hv": 0, "accd": 0, "grid_pairs": 0}
 
         def add(counts):
             for k, v in (counts or {}).items():
                 launches[k] += v
 
-        records, accd = run("kernel_vs_plain", phase_kernel_vs_plain, device) or (None, None)
+        records, accd, grid = (run("kernel_vs_plain", phase_kernel_vs_plain, device)
+                               or (None, None, None))
         run("ground_path", phase_ground_path, device)
         run("broadphase", phase_broadphase, device)
         contact = run("contact_path", phase_contact_path, device)
@@ -2082,8 +2143,10 @@ def main(argv=None):
 
         records = {("driver", 20, "float32"): measure(20, torch.float32, device, "driver")}
         accd = accd_vs_plain(device, ("boxes",))
+        grid = grid_vs_plain(device, ("boxes",))
     r = records[("driver", 20, "float32")]  # the driver path's shape and dtype
     a = [accd[("boxes", kind, "float32")] for kind in ("pt", "ee")]  # the landing's sets
+    g = grid[("boxes", "float32")]  # the landing's largest grid call
     bound_us = sum(x["bound_us"] for x in a)
     ms = sum(x["kernel_ms"] for x in a)
     print(json.dumps({"kernels": [dict(
@@ -2099,6 +2162,13 @@ def main(argv=None):
         ms=ms, plain_ms=sum(x["plain_ms"] for x in a), bound_ms=bound_us / 1e3,
         bound_by="bytes", library_ms=None, bound_us=bound_us,
         share_of_bound=bound_us / (1e3 * ms),
+    ), dict(
+        name="grid_pairs", route="cuda", source="ipc_tpu_torch/csrc/grid_pairs.cu",
+        replaces="ipc_tpu/contact/spatial_hash.py:814", launches=launches["grid_pairs"],
+        rows=sum(g["rows"]), kept=sum(g["kept"]), equal=g["equal"], ms=g["walk_ms"],
+        call_ms=g["call_ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_us"] / 1e3,
+        bound_by="bytes", library_ms=None, bound_us=g["bound_us"],
+        share_of_bound=g["bound_us"] / (1e3 * g["walk_ms"]),
     )]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -87,5 +87,14 @@ def load_kernels():
             # x4, p4, n, slackness, max_iter, t_max, t (out), live (out or null), stream
             fn.argtypes = [ptr, ptr, i32, f64, i32, f64, ptr, ptr, ptr]
             fn.restype = i32
+        i64 = ctypes.c_int64
+        for kind in ("pt", "ee", "et"):
+            for dt in ("f32", "f64"):
+                fn = getattr(lib, f"ipc_grid_{kind}_{dt}")
+                # q_i0, lo, n, prims, t_key, q_box, t_box, q_rb, q_u, q_w, t_rb, t_u,
+                # t_w, q_v, t_v, q_dbc, t_dbc, nq, n_t, gap, write, counts, offsets, keys,
+                # stream
+                fn.argtypes = [ptr] * 17 + [i64, i64, f64, i32] + [ptr] * 4
+                fn.restype = i32
         _lib = lib
     return _lib

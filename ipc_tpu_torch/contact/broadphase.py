@@ -15,11 +15,14 @@ utils/observability.py).
 
 `reach_mask` runs in float32 with the 1e-5 threshold inflation whatever the
 working dtype, exactly as the JAX package's dense and grid paths do: that is
-what makes the dense and grid candidate sets identical.
+what makes the dense and grid candidate sets identical. Its sums and its root
+are written out in one order (`reach_ok`), so the CPU, the card and the grid's
+kernel keep the same pairs.
 """
 
 import torch
 
+from ipc_tpu_torch.ops.distance import dot_ordered, sqrt_rn
 from ipc_tpu_torch.utils.observability import reading
 
 __all__ = [
@@ -87,12 +90,14 @@ def _f32(t):
 def reach_ok(rb_a, u_a, w_a, rb_b, u_b, w_b, gap):
     """Elementwise (broadcasting) reachability of primitive a against b:
     box_dist(raw_a, raw_b) <= (gap + |u_a - u_b| + w_a + w_b)(1 + 1e-5),
-    all in float32. rb (...,2,3), u (...,3), w (...)."""
+    all in float32, summed as ((0 + 1) + 2) with roots rounded to nearest
+    on every device (`dot_ordered`, `sqrt_rn`), as the grid's kernel
+    (csrc/grid_pairs.cu) rounds. rb (...,2,3), u (...,3), w (...)."""
     g = torch.clamp(torch.maximum(_f32(rb_a[..., 0, :]) - _f32(rb_b[..., 1, :]),
                                   _f32(rb_b[..., 0, :]) - _f32(rb_a[..., 1, :])), min=0.0)
-    d2 = (g * g).sum(dim=-1)
+    d2 = dot_ordered(g, g)
     du = _f32(u_a) - _f32(u_b)
-    rel = torch.sqrt((du * du).sum(dim=-1)) + _f32(w_a) + _f32(w_b)
+    rel = sqrt_rn(dot_ordered(du, du)) + _f32(w_a) + _f32(w_b)
     gap32 = torch.tensor(gap, dtype=torch.float32, device=rb_a.device)
     infl = torch.tensor(1.0 + 1e-5, dtype=torch.float32, device=rb_a.device)
     reach = (gap32 + rel) * infl

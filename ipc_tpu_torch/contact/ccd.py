@@ -19,7 +19,7 @@ wrapper's `launches` (ops/launch_counts).
 One order of rounding on every device: the plain version sums each dot
 product as ((0 + 1) + 2) (`dot_ordered`, ops/distance.py) and the mean of
 the four displacements as ((0 + 1) + 2) + 3, times 1/4, takes every square
-root rounded to nearest (`_sqrt`), and the kernel rounds each operation in
+root rounded to nearest (`sqrt_rn`), and the kernel rounds each operation in
 that order, so the CPU, the plain version on the card and the kernel give
 the same bits, and a CCD-clamped step (the scripted prologue's
 `script_scale`) is the same on the CPU and the card.
@@ -46,28 +46,18 @@ direction (the gradient of the squared distance, by autograd as JAX takes
 it by `jax.grad`), which keeps sliding contacts certified in one test.
 """
 
-import numpy as np
 import torch
 
 from ipc_tpu_torch.ops.distance import (cross, dot_ordered, edge_edge_dist2,
-                                         point_triangle_dist2)
+                                         point_triangle_dist2, sqrt_rn)
 from ipc_tpu_torch.ops.launch_counts import count_launch, register
 from ipc_tpu_torch.utils.observability import count, count_device, tracing
 
 __all__ = ["accd_pt", "accd_ee", "ti_pt", "ti_ee"]
 
 
-def _sqrt(v):
-    """Square roots rounded to nearest, as CUDA's and the kernel's are:
-    ATen's CPU sqrt misses the nearest value for about 1% of inputs (a
-    vectorised approximation), numpy's does not."""
-    if v.device.type == "cpu":
-        return torch.from_numpy(np.sqrt(v.detach().numpy()))
-    return torch.sqrt(v)
-
-
 def _norm(v):
-    return _sqrt(dot_ordered(v, v))
+    return sqrt_rn(dot_ordered(v, v))
 
 
 def _accd(x4, p4, dist2_fn, slackness, max_iter, t_max=1.0):
@@ -95,7 +85,7 @@ def _accd_loop(x4, p4, dist2_fn, slackness, max_iter, t_max, want_done):
         torch.maximum(nrm[:, 1], nrm[:, 2]), nrm[:, 3])
     l_p_ee = torch.maximum(nrm[:, 0], nrm[:, 1]) + torch.maximum(nrm[:, 2], nrm[:, 3])
     l_p = torch.maximum(l_p, l_p_ee)  # conservative for both layouts
-    d0 = _sqrt(torch.clamp(dist2_fn(x4), min=0.0))
+    d0 = sqrt_rn(torch.clamp(dist2_fn(x4), min=0.0))
     g = slackness * d0
     no_motion = l_p <= 0.0
     l_safe = torch.clamp(l_p, min=1e-30)
@@ -106,7 +96,7 @@ def _accd_loop(x4, p4, dist2_fn, slackness, max_iter, t_max, want_done):
     for _ in range(max_iter):
         if done_passes is not None:
             done_passes += done
-        d = _sqrt(torch.clamp(dist2_fn(x4 + t[:, None, None] * p4), min=0.0))
+        d = sqrt_rn(torch.clamp(dist2_fn(x4 + t[:, None, None] * p4), min=0.0))
         step = 0.9 * (d - g) / l_safe
         t_new = torch.clamp(t + step, max=t_max)
         done_new = done | (step <= d0_floor) | (t >= t_max)

@@ -17,20 +17,46 @@ design instead:
      their coordinates (21 bits each in an int64; no hash, no collisions);
   2. targets register in each of their cells; one stable sort by key;
   3. each query cell finds its targets' range by binary search
-     (`searchsorted`), and the (query, target) pairs of all ranges expand
-     to exact size (`repeat_interleave`);
-  4. a pair is kept only in its canonical cell max(q_i0, t_i0) (it lies in
-     both spans whenever the boxes overlap, so every overlapping pair is
-     found exactly once), then the exact AABB test in the working dtype,
-     the family's validity test and the float32 reach test
-     (broadphase.reach_ok) — the dense path's arithmetic, bit for bit.
+     (`searchsorted`);
+  4. a (query cell, target) row is kept only in the pair's canonical cell
+     max(q_i0, t_i0) (it lies in both spans whenever the boxes overlap, so
+     every overlapping pair is found exactly once), then the exact AABB
+     test in the working dtype, the family's validity test and the float32
+     reach test (broadphase.reach_ok) — the dense path's arithmetic, bit
+     for bit. The kept keys q * n_t + t are sorted once.
+
+Step 4 has two routes, chosen by the device and by nothing else. On a CUDA
+device the walk kernel (csrc/grid_pairs.cu, `grid_pairs`) tests the rows
+in registers, one warp per query primitive striding its cells' registry
+ranges, and writes no row out: a count pass writes each query's kept
+pairs; their exclusive scan (`cumsum`) gives each query its offset; one
+host read ("broadphase.counts") brings back every family's kept total,
+the dense sweep's counts and the largest cell coordinate (the 21-bit
+check); the write pass (none for a family that keeps nothing) writes
+the kept keys at their offsets, placed within a warp by ballot and popc,
+so their order is the same in every run. No tensor has an element per
+row: the expansion of the largest mat twist (303,750 tets) is some 357M
+rows a call, of which 0.6% are kept.
+On the CPU, and only there, the plain version (`_run_plain`) expands the
+rows to exact size (`repeat_interleave`) in chunks of at most BUDGET rows
+and tests them in PyTorch, with one host read for the expansion sizes and
+the range check ("broadphase.totals"), one for the kept counts
+("broadphase.counts") and one more per family whose expansion is split
+("broadphase.chunks"). A CUDA tensor never reaches it: the kernel
+launches or the call raises. Each launch counts in `grid_pairs.launches`
+(ops/launch_counts). Both routes keep the same pairs (reach_ok writes its
+rounding order out).
+
+Counters (utils/observability.py): on the host, always,
+`broadphase.calls` (grid calls) and `broadphase.kernel_calls` (calls that
+launched the kernel); while tracing is on, `broadphase.rows` ((query cell,
+target) rows walked, summed on the device) and `broadphase.kept` (pairs
+the grid kept, big sweep aside, from the read that happens anyway). kept /
+rows is the share of the walk that the cell size spends on pairs it
+rejects.
 
 Boxes with non-finite coordinates register nowhere and query nothing, and
-they do not move the grid's origin or cell size. Host reads (`host_read`,
-utils/observability.py): one for the expansion sizes (and the
-coordinate-range check, site "broadphase.totals"), one for the kept counts
-("broadphase.counts"); one more per family whose expansion is split into
-chunks (`budget`, "broadphase.chunks").
+they do not move the grid's origin or cell size.
 
 Oversized ("big") primitives (ipc_tpu/contact/spatial_hash.py:453-910):
 one kinematic plane triangle would set the cell size until every
@@ -61,19 +87,21 @@ round with `ppermute`; that needs point-to-point transfers, which gloo
 does not take on CUDA tensors. The cost of this choice: the AABBs (6
 floats per primitive), the motion columns and the two registries (8 int64
 keys plus 8 int64 ids per target triangle and edge) are replicated on every
-rank, O(S + E) each, where the ring holds 1/n of them. Only the expansion,
-the largest transient (one row per query cell and target in its cell), and
-the emitted pairs shrink with n. At 96,000 tets (9,600 surface triangles,
+rank, O(S + E) each, where the ring holds 1/n of them. Only the walk (the
+rows of the rank's queries) and the emitted pairs shrink with n. At 96,000 tets (9,600 surface triangles,
 14,400 surface edges) the registries are 3.1 MB per rank.
 """
+
+from collections import namedtuple
 
 import torch
 
 from ipc_tpu_torch.contact import broadphase as BP
+from ipc_tpu_torch.ops.launch_counts import count_launch, register
 from ipc_tpu_torch.parallel.sharding import row_range
-from ipc_tpu_torch.utils.observability import host_read
+from ipc_tpu_torch.utils.observability import count, count_device, host_read, tracing
 
-__all__ = ["grid_geometry", "fused_candidates", "et_candidates"]
+__all__ = ["grid_geometry", "fused_candidates", "et_candidates", "grid_pairs"]
 
 _BITS = 21  # per-axis cell coordinate bits of the int64 key
 _BIG = torch.iinfo(torch.int64).max
@@ -147,16 +175,47 @@ class _Registry:
         self.cells = cells
 
 
+Topo = namedtuple("Topo", "kind q_v t_v q_dbc t_dbc")
+Topo.__doc__ = """One family's validity inputs: kind ("pt", "ee" or "et"), the
+query and target vertex ids (Nq, KQ) / (Nt, KT) int64, and their all-DBC
+bits (Nq,) / (Nt,) bool, or None for no DBC test."""
+
+
+def _topology(kind, surf_verts, surf_edges, surf_tris, dbc_mask):
+    """Topo of family `kind` over the surface."""
+    q_v = surf_verts[:, None] if kind == "pt" else surf_edges
+    t_v = surf_edges if kind == "ee" else surf_tris
+    if dbc_mask is None:
+        return Topo(kind, q_v, t_v, None, None)
+    return Topo(kind, q_v, t_v, dbc_mask[q_v].all(dim=1), dbc_mask[t_v].all(dim=1))
+
+
+def _valid(topo):
+    """valid(q, t): no shared vertex, not both all-DBC, and q < t for
+    edge-edge pairs."""
+
+    def valid(q, t):
+        shared = (topo.q_v[q][:, :, None] == topo.t_v[t][:, None, :]).any(dim=2).any(dim=1)
+        ok = ~shared
+        if topo.kind == "ee":
+            ok = ok & (q < t)
+        if topo.q_dbc is not None:
+            ok = ok & ~(topo.q_dbc[q] & topo.t_dbc[t])
+        return ok
+
+    return valid
+
+
 class _Family:
     """One query family against one registry: query cells, their target
     ranges and the per-pair filter."""
 
-    def __init__(self, qcells, reg, q_boxes, t_boxes, q_motion, t_motion, valid_fn, n_t,
+    def __init__(self, qcells, reg, q_boxes, t_boxes, q_motion, t_motion, topo, n_t,
                  q_range=None):
         self.qc, self.reg = qcells, reg
         self.q_boxes, self.t_boxes = q_boxes, t_boxes
         self.q_motion, self.t_motion = q_motion, t_motion
-        self.valid_fn = valid_fn
+        self.topo = topo
         self.n_t = n_t
         qk = qcells.key.reshape(-1)
         self.lo = torch.searchsorted(reg.keys, qk, side="left")
@@ -170,7 +229,7 @@ class _Family:
 
     def keys(self, a, b, total, gap):
         """Sort keys q * n_t + t of the kept pairs among query cells [a, b)
-        (total expanded rows; rejected rows get _BIG)."""
+        (total expanded rows; rejected rows get _BIG): the plain version."""
         dev = self.n.device
         n = self.n[a:b]
         qc = a + torch.repeat_interleave(torch.arange(b - a, device=dev), n,
@@ -185,8 +244,45 @@ class _Family:
         sep = ((qb[:, 0] > tb[:, 1]) | (tb[:, 0] > qb[:, 1])).any(dim=-1)
         qm = [m[q] for m in self.q_motion]
         tm = [m[t] for m in self.t_motion]
-        keep = canon & ~sep & self.valid_fn(q, t) & BP.reach_ok(*qm, *tm, gap)
+        keep = canon & ~sep & _valid(self.topo)(q, t) & BP.reach_ok(*qm, *tm, gap)
         return torch.where(keep, q * self.n_t + t, torch.full_like(q, _BIG))
+
+
+def grid_pairs(fam, gap, offsets=None, total=0):
+    """One pass of the walk kernel (csrc/grid_pairs.cu) over family `fam`
+    on its CUDA device: the count pass (offsets None) returns each query's
+    kept pairs (Nq,) int64; the write pass, given their exclusive scan
+    `offsets` and their sum `total`, returns the kept keys q * n_t + t
+    (total,) int64 in the kernel's order. A launch (none without queries,
+    and no write pass when `total` is 0) counts in `launches`."""
+    from ipc_tpu_torch.build import load_kernels
+
+    q_box = fam.q_boxes
+    dev, nq = q_box.device, int(q_box.shape[0])
+    write = offsets is not None
+    out = torch.empty((total if write else nq,), dtype=torch.int64, device=dev)
+    if write and total == 0:
+        return out
+
+    topo = fam.topo
+    fn = getattr(load_kernels(),
+                 f"ipc_grid_{topo.kind}_{'f32' if q_box.dtype == torch.float32 else 'f64'}")
+    # held until the launch is queued: a temporary's memory could be reused
+    args = [None if a is None else a.contiguous() for a in (
+        fam.qc.i0, fam.lo, fam.n, fam.reg.prims, fam.reg.cells.key[:, 0], q_box, fam.t_boxes,
+        *fam.q_motion, *fam.t_motion, topo.q_v, topo.t_v, topo.q_dbc, topo.t_dbc, offsets)]
+    err = fn(*[None if a is None else a.data_ptr() for a in args[:-1]], nq, fam.n_t,
+             float(gap), int(write), None if write else out.data_ptr(),
+             args[-1].data_ptr() if write else None, out.data_ptr() if write else None,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if nq:
+        count_launch(grid_pairs)
+    if err != 0:
+        raise RuntimeError(f"grid_pairs ({topo.kind}): CUDA launch failed with error {err}")
+    return out
+
+
+register(grid_pairs)
 
 
 def _chunks(fam, total):
@@ -206,74 +302,80 @@ def _chunks(fam, total):
     return [(a, b, sb - sa) for (a, sa), (b, sb) in zip(bounds, bounds[1:]) if b > a]
 
 
+def _check_top(top):
+    if top >= (1 << _BITS):
+        raise ValueError("broad phase: a cell coordinate exceeds the grid key's 21 bits")
+
+
+def _pairs(f, sk):
+    """(pairs (n,2), n) of family f from its sorted kept keys."""
+    pairs = torch.stack([sk // f.n_t, sk % f.n_t], dim=1)
+    return pairs, int(pairs.shape[0])
+
+
 def _run(families, gap, tops, swept=None):
     """Pairs of every family: list of ((n,2) int64, n). swept: per family,
-    the key tensors of its dense big sweep."""
-    totals = host_read("broadphase.totals", *[f.n.sum() for f in families],
-                       torch.stack(tops).amax())
-    if totals[-1] >= (1 << _BITS):
-        raise ValueError("broad phase: a cell coordinate exceeds the grid key's 21 bits")
-    keys = []
-    for i, (f, total) in enumerate(zip(families, totals[:-1])):
-        keys.append([f.keys(a, b, size, gap) for a, b, size in _chunks(f, total) if size > 0]
-                    + (swept[i] if swept else []))
-    counts = [[(k != _BIG).sum() for k in ks] for ks in keys]
-    flat = [c for cs in counts for c in cs]
-    flat = host_read("broadphase.counts", torch.stack(flat)) if flat else []
+    the key tensors of its dense big sweep. The walk kernel on a CUDA
+    device, the plain version on the CPU."""
+    dev = families[0].n.device
+    count("broadphase.calls")
+    if tracing():
+        count_device("broadphase.rows", torch.stack([f.n.sum() for f in families]).sum())
+    return (_run_kernel if dev.type == "cuda" else _run_plain)(families, gap, tops, swept)
+
+
+def _run_kernel(families, gap, tops, swept=None):
+    """`_run` on the card: the count pass of every family, one host read
+    (the kept totals, the dense sweep's counts and the range check), then
+    the write pass of each family that keeps a pair and one sort per
+    family."""
+    counts = [grid_pairs(f, gap) for f in families]
+    count("broadphase.kernel_calls")
+    dense = swept or [[] for _ in families]
+    read = host_read("broadphase.counts", torch.stack(
+        [c.sum() for c in counts] + [(k != _BIG).sum() for ks in dense for k in ks]
+        + [torch.stack(tops).amax()]))
+    _check_top(read[-1])
+    totals, kept_dense = read[:len(families)], iter(read[len(families):-1])
+    if tracing():
+        count("broadphase.kept", sum(totals))
     out = []
-    i = 0
-    for f, ks in zip(families, keys):
-        parts = []
-        for k in ks:
-            parts.append(torch.sort(k).values[:flat[i]])
-            i += 1
-        sk = torch.sort(torch.cat(parts)).values if len(parts) > 1 else (
-            parts[0] if parts else torch.zeros((0,), dtype=torch.int64, device=f.n.device))
-        pairs = torch.stack([sk // f.n_t, sk % f.n_t], dim=1)
-        out.append((pairs, int(pairs.shape[0])))
+    for f, c, total, ks in zip(families, counts, totals, dense):
+        parts = [grid_pairs(f, gap, torch.cumsum(c, dim=0) - c, total)]
+        parts += [torch.sort(k).values[:next(kept_dense)] for k in ks]
+        out.append(_pairs(f, torch.sort(torch.cat(parts)).values))
     return out
 
 
-def _pt_valid(surf_verts, surf_tris, dbc_mask):
-    v_dbc = dbc_mask[surf_verts]
-    t_dbc = dbc_mask[surf_tris].all(dim=1)
-
-    def valid(q, t):
-        vid = surf_verts[q][:, None]
-        in_tri = (vid == surf_tris[t]).any(dim=1)
-        return ~in_tri & ~(v_dbc[q] & t_dbc[t])
-
-    return valid
-
-
-def _ee_valid(surf_edges, dbc_mask):
-    e_dbc = dbc_mask[surf_edges].all(dim=1)
-
-    def valid(q, t):
-        shared = (surf_edges[q][:, :, None] == surf_edges[t][:, None, :]).any(dim=2).any(dim=1)
-        return (q < t) & ~shared & ~(e_dbc[q] & e_dbc[t])
-
-    return valid
-
-
-def _et_valid(surf_edges, surf_tris, dbc_mask):
-    e_dbc = None if dbc_mask is None else dbc_mask[surf_edges].all(dim=1)
-    t_dbc = None if dbc_mask is None else dbc_mask[surf_tris].all(dim=1)
-
-    def valid(q, t):
-        shared = (surf_edges[q][:, :, None] == surf_tris[t][:, None, :]).any(dim=2).any(dim=1)
-        ok = ~shared
-        if e_dbc is not None:
-            ok = ok & ~(e_dbc[q] & t_dbc[t])
-        return ok
-
-    return valid
+def _run_plain(families, gap, tops, swept=None):
+    """`_run`'s plain version: each family's rows expanded to exact size in
+    chunks of at most BUDGET (`_Family.keys`), then sorted."""
+    totals = host_read("broadphase.totals", *[f.n.sum() for f in families],
+                       torch.stack(tops).amax())
+    _check_top(totals[-1])
+    keys, grid = [], 0
+    for i, (f, total) in enumerate(zip(families, totals[:-1])):
+        ks = [f.keys(a, b, size, gap) for a, b, size in _chunks(f, total) if size > 0]
+        keys.append((len(ks), ks + (swept[i] if swept else [])))
+    flat = [(k != _BIG).sum() for _, ks in keys for k in ks]
+    flat = host_read("broadphase.counts", torch.stack(flat)) if flat else []
+    out, i = [], 0
+    for f, (n_grid, ks) in zip(families, keys):
+        grid += sum(flat[i:i + n_grid])
+        parts = [torch.sort(k).values[:m] for k, m in zip(ks, flat[i:])]
+        sk = torch.sort(torch.cat(parts)).values if len(parts) > 1 else (
+            parts[0] if parts else torch.zeros((0,), dtype=torch.int64, device=f.n.device))
+        out.append(_pairs(f, sk))
+        i += len(ks)
+    if tracing():
+        count("broadphase.kept", grid)
+    return out
 
 
-def _ee_dense_valid(surf_edges, dbc_mask, edge_big):
+def _ee_dense_valid(topo, edge_big):
     """EE validity of the dense pass (t a big edge): a big-big pair once
     (q < t), a small-big pair whatever the order."""
-    base = _ee_valid(surf_edges, dbc_mask)
+    base = _valid(topo)
 
     def valid(q, t):
         return base(torch.minimum(q, t), torch.maximum(q, t)) & (~edge_big[q] | (q < t))
@@ -281,10 +383,10 @@ def _ee_dense_valid(surf_edges, dbc_mask, edge_big):
     return valid
 
 
-def _te_dense_valid(surf_edges, surf_tris, dbc_mask, tri_big):
+def _te_dense_valid(topo, tri_big):
     """Triangle (q) against big edge (t): the ET validity; big triangles
     left out (the all-edges x big-triangles pass has them)."""
-    base = _et_valid(surf_edges, surf_tris, dbc_mask)
+    base = _valid(topo)
 
     def valid(q, t):
         ok = base(t, q)
@@ -328,20 +430,19 @@ def _big_parts(big):
     return big.get("tri_ids"), big.get("tri_mask"), big.get("edge_ids"), big.get("edge_mask")
 
 
-def _et_dense(eb, em, tb, tm, surf_edges, surf_tris, dbc_mask, big, gap):
+def _et_dense(eb, em, tb, tm, et_topo, big, gap):
     """The two dense ET passes: all edges x big triangles, then small
     triangles x big edges (keys edge * nS + triangle)."""
     bt_ids, bt_mask, be_ids, _ = _big_parts(big)
-    nS = int(surf_tris.shape[0])
+    nS = int(tb.shape[0])
     keys = []
     if bt_ids is not None:
-        keys += _dense_keys(eb, em, bt_ids, tb[bt_ids], _gather(tm, bt_ids),
-                           _et_valid(surf_edges, surf_tris, dbc_mask), gap,
-                           lambda q, t: q * nS + t)
+        keys += _dense_keys(eb, em, bt_ids, tb[bt_ids], _gather(tm, bt_ids), _valid(et_topo),
+                            gap, lambda q, t: q * nS + t)
     if be_ids is not None:
         keys += _dense_keys(tb, tm, be_ids, eb[be_ids], _gather(em, be_ids),
-                           _te_dense_valid(surf_edges, surf_tris, dbc_mask, bt_mask), gap,
-                           lambda q, t: t * nS + q)
+                            _te_dense_valid(et_topo, bt_mask), gap,
+                            lambda q, t: t * nS + q)
     return keys
 
 
@@ -350,16 +451,34 @@ def _share(n_rows, shard):
     return None if shard is None else row_range(n_rows, *shard)
 
 
-def fused_candidates(x, surf_verts, surf_edges, surf_tris, dbc_mask, disp=None, gap=0.0,
-                     with_et=True, big=None, shard=None):
-    """One broad phase serving the three queries of a Newton iteration:
-    one shared geometry, one triangle registry (PT and ET queries) and one
-    edge registry (EE), plus the dense sweep of the `big` primitives.
-    Returns dict(pt=(pairs, n), ee=(pairs, n), et=(pairs, n)); with_et=False
-    gives an empty ET set. shard = (rank, world) keeps the pairs of rank's
-    share of the query rows (module docstring; not with `big`)."""
+def _check(x, disp, index_arrays, widths):
+    """The refusals of fused_candidates / et_candidates: x (V,3) float32 or
+    float64 on the CPU or a CUDA device, disp None or x's like, index
+    arrays int64 (n,) or (n, width) on x's device."""
+    if x.dim() != 2 or x.shape[1] != 3:
+        raise ValueError(f"broad phase: x {tuple(x.shape)} must be (V,3)")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"broad phase: x {x.dtype} must be float32 or float64")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"broad phase: unsupported device {x.device}")
+    if disp is not None and (disp.shape != x.shape or disp.dtype != x.dtype
+                             or disp.device != x.device):
+        raise ValueError(f"broad phase: disp {tuple(disp.shape)} {disp.dtype} on {disp.device}"
+                         f" must match x {tuple(x.shape)} {x.dtype} on {x.device}")
+    for a, w in zip(index_arrays, widths):
+        shape_ok = a.dim() == 1 if w is None else (a.dim() == 2 and a.shape[1] == w)
+        if not shape_ok or a.dtype != torch.int64 or a.device != x.device:
+            raise ValueError(f"broad phase: index array {tuple(a.shape)} {a.dtype} on "
+                             f"{a.device} must be int64 {'(n,)' if w is None else (-1, w)} "
+                             f"on {x.device}")
+
+
+def _fused_parts(x, surf_verts, surf_edges, surf_tris, dbc_mask, disp=None, gap=0.0,
+                 with_et=True, big=None, shard=None):
+    """fused_candidates' arguments of `_run`: (families, gap, tops, swept)."""
     if shard is not None and big:
         raise ValueError("fused_candidates: a sharded query takes no big primitives")
+    _check(x, disp, (surf_verts, surf_edges, surf_tris), (None, 2, 3))
     vb = BP.vert_aabbs(x, surf_verts, disp, gap)
     eb = BP.edge_aabbs(x, surf_edges, disp, gap)
     tb = BP.tri_aabbs(x, surf_tris, disp, gap)
@@ -373,41 +492,52 @@ def fused_candidates(x, surf_verts, surf_edges, surf_tris, dbc_mask, disp=None, 
     tc = _Cells(tb, origin, cell, bt_mask)
     treg, ereg = _Registry(tc), _Registry(ec)
     nS, nE = int(surf_tris.shape[0]), int(surf_edges.shape[0])
-    pt_valid = _pt_valid(surf_verts, surf_tris, dbc_mask)
+    topo = {k: _topology(k, surf_verts, surf_edges, surf_tris, dbc_mask)
+            for k in ("pt", "ee", "et")}
     vr = _share(int(surf_verts.shape[0]), shard)
     er = _share(nE, shard)
     fams = [
-        _Family(vc, treg, vb, tb, vm, tm, pt_valid, nS, vr),
-        _Family(ec, ereg, eb, eb, em, em, _ee_valid(surf_edges, dbc_mask), nE, er),
+        _Family(vc, treg, vb, tb, vm, tm, topo["pt"], nS, vr),
+        _Family(ec, ereg, eb, eb, em, em, topo["ee"], nE, er),
     ]
     if with_et:
-        fams.append(_Family(ec, treg, eb, tb, em, tm,
-                            _et_valid(surf_edges, surf_tris, dbc_mask), nS, er))
+        fams.append(_Family(ec, treg, eb, tb, em, tm, topo["et"], nS, er))
     swept = None
     if big:
         swept = [[], []]
         if bt_ids is not None:
-            swept[0] = _dense_keys(vb, vm, bt_ids, tb[bt_ids], _gather(tm, bt_ids), pt_valid,
-                                  gap, lambda q, t: q * nS + t)
+            swept[0] = _dense_keys(vb, vm, bt_ids, tb[bt_ids], _gather(tm, bt_ids),
+                                   _valid(topo["pt"]), gap, lambda q, t: q * nS + t)
         if be_ids is not None:
             swept[1] = _dense_keys(eb, em, be_ids, eb[be_ids], _gather(em, be_ids),
-                                  _ee_dense_valid(surf_edges, dbc_mask, be_mask), gap,
-                                  lambda q, t: torch.minimum(q, t) * nE + torch.maximum(q, t))
+                                   _ee_dense_valid(topo["ee"], be_mask), gap,
+                                   lambda q, t: torch.minimum(q, t) * nE + torch.maximum(q, t))
         if with_et:
-            swept.append(_et_dense(eb, em, tb, tm, surf_edges, surf_tris, dbc_mask, big, gap))
-    out = _run(fams, gap, [vc.top, ec.top, tc.top], swept)
+            swept.append(_et_dense(eb, em, tb, tm, topo["et"], big, gap))
+    return fams, gap, [vc.top, ec.top, tc.top], swept
+
+
+def fused_candidates(x, surf_verts, surf_edges, surf_tris, dbc_mask, disp=None, gap=0.0,
+                     with_et=True, big=None, shard=None):
+    """One broad phase serving the three queries of a Newton iteration:
+    one shared geometry, one triangle registry (PT and ET queries) and one
+    edge registry (EE), plus the dense sweep of the `big` primitives.
+    Returns dict(pt=(pairs, n), ee=(pairs, n), et=(pairs, n)); with_et=False
+    gives an empty ET set. shard = (rank, world) keeps the pairs of rank's
+    share of the query rows (module docstring; not with `big`)."""
+    out = _run(*_fused_parts(x, surf_verts, surf_edges, surf_tris, dbc_mask, disp, gap,
+                             with_et, big, shard))
     if not with_et:
         out.append((torch.zeros((0, 2), dtype=torch.int64, device=x.device), 0))
     return dict(pt=out[0], ee=out[1], et=out[2])
 
 
-def et_candidates(x, surf_edges, surf_tris, disp=None, gap=0.0, dbc_mask=None, big=None,
-                  shard=None):
-    """Edge-triangle pairs alone (with the dense sweep of the `big`
-    primitives): ((n,2) int64, n). shard = (rank, world): the
-    pairs of rank's share of the edges (not with `big`)."""
+def _et_parts(x, surf_edges, surf_tris, disp=None, gap=0.0, dbc_mask=None, big=None,
+              shard=None):
+    """et_candidates' arguments of `_run`: (families, gap, tops, swept)."""
     if shard is not None and big:
         raise ValueError("et_candidates: a sharded query takes no big primitives")
+    _check(x, disp, (surf_edges, surf_tris), (2, 3))
     eb = BP.edge_aabbs(x, surf_edges, disp, gap)
     tb = BP.tri_aabbs(x, surf_tris, disp, gap)
     em = BP.prim_motion(x, surf_edges, disp)
@@ -415,10 +545,17 @@ def et_candidates(x, surf_edges, surf_tris, disp=None, gap=0.0, dbc_mask=None, b
     _, bt_mask, _, be_mask = _big_parts(big)
     origin, cell = grid_geometry(eb, tb, excludes=(be_mask, bt_mask))
     ec, tc = _Cells(eb, origin, cell, be_mask), _Cells(tb, origin, cell, bt_mask)
-    fam = _Family(ec, _Registry(tc), eb, tb, em, tm,
-                  _et_valid(surf_edges, surf_tris, dbc_mask), int(surf_tris.shape[0]),
+    topo = _topology("et", None, surf_edges, surf_tris, dbc_mask)
+    fam = _Family(ec, _Registry(tc), eb, tb, em, tm, topo, int(surf_tris.shape[0]),
                   _share(int(surf_edges.shape[0]), shard))
-    swept = [_et_dense(eb, em, tb, tm, surf_edges, surf_tris, dbc_mask, big, gap)] if big \
-        else None
-    (res,) = _run([fam], gap, [ec.top, tc.top], swept)
+    swept = [_et_dense(eb, em, tb, tm, topo, big, gap)] if big else None
+    return [fam], gap, [ec.top, tc.top], swept
+
+
+def et_candidates(x, surf_edges, surf_tris, disp=None, gap=0.0, dbc_mask=None, big=None,
+                  shard=None):
+    """Edge-triangle pairs alone (with the dense sweep of the `big`
+    primitives): ((n,2) int64, n). shard = (rank, world): the
+    pairs of rank's share of the edges (not with `big`)."""
+    (res,) = _run(*_et_parts(x, surf_edges, surf_tris, disp, gap, dbc_mask, big, shard))
     return res

@@ -20,6 +20,7 @@ jax.hessian of one stencil); the port differentiates the pair energies
 with `torch.func` instead (contact/selfcollision.py).
 """
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -38,6 +39,7 @@ __all__ = [
     "dtype_PT",
     "dtype_EE",
     "dot_ordered",
+    "sqrt_rn",
     "ee_cross_sq_norm",
     "eps_x_ee",
     "mollifier_ee",
@@ -56,10 +58,20 @@ def dot(a, b):
 def dot_ordered(a, b):
     """dot(a, b) of 3-vectors summed as ((0 + 1) + 2) on every device: the
     order of ATen's CPU sum, where its CUDA sum takes (0 + 2) + 1. The
-    plain ACCD (contact/ccd.py) computes with it, so that the CPU, the card
-    and ACCD's kernel (csrc/accd.cu) round alike."""
+    plain ACCD (contact/ccd.py) and the broad phase's reach test
+    (contact/broadphase.reach_ok) compute with it, so that the CPU, the card
+    and the kernels (csrc/accd.cu, csrc/grid_pairs.cu) round alike."""
     p = a * b
     return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+
+def sqrt_rn(v):
+    """Square roots rounded to nearest, as CUDA's and the kernels' are:
+    ATen's CPU sqrt misses the nearest value for about 1% of inputs (a
+    vectorised approximation), numpy's does not."""
+    if v.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(v.detach().numpy()))
+    return torch.sqrt(v)
 
 
 def cross(a, b):

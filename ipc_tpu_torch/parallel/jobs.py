@@ -7,8 +7,8 @@ Collectives inside a job run in the same order on every rank.
   rank_step  (stepper, step): spec's two-box scene on the device, cut to
              the rank's shard, and its make_step;
   steps      a rank's records of n steps from a state: the stats, the
-             rank's own pair counts, operator applications, tet_hv
-             launches, collectives, wall seconds, the state's checks
+             rank's own pair counts, operator applications, tet_hv,
+             ACCD and grid walk launches (over the step), collectives, wall seconds, the state's checks
              (finite, ymin, the edge-triangle test) and x;
   rank_info  the rank, backend, device, shard_report and the modules of
              jax or the JAX package the process has loaded (none);
@@ -47,23 +47,26 @@ def steps(st, step, s, n):
     """(the state after n steps of `step` from s, [one record per step])
     (module docstring)."""
     from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
+    from ipc_tpu_torch.contact.spatial_hash import grid_pairs
     from ipc_tpu_torch.ops.tet_hv import tet_hv
 
     rows = []
     for _ in range(n):
         ops0, launches0, coll0 = step.operator_applications, tet_hv.launches, step.collectives
         accd0 = accd_pt.launches + accd_ee.launches
+        grid0 = grid_pairs.launches
         _sync(st.device)
         t0 = time.perf_counter()
         s, stats = step(s)
         _sync(st.device)
         wall = time.perf_counter() - t0
+        grid = grid_pairs.launches - grid0
         hit, _ = st.sc.has_intersection(s.x) if st.sc is not None else (False, 0)
         rows.append(dict(
             stats=dataclasses.asdict(stats), wall_s=wall,
             operator_applications=step.operator_applications - ops0,
             tet_hv_launches=tet_hv.launches - launches0,
-            accd_launches=accd_pt.launches + accd_ee.launches - accd0,
+            accd_launches=accd_pt.launches + accd_ee.launches - accd0, grid_launches=grid,
             collectives=step.collectives - coll0, rank_counts=dict(step.rank_counts or {}),
             finite=bool(torch.isfinite(s.x).all() and torch.isfinite(s.v).all()),
             ymin=s.x[:, 1].min().item(), intersection=bool(hit), x=s.x.cpu().numpy()))
