@@ -42,8 +42,8 @@ and ends the run with a non-zero exit code (nothing is caught):
      kernel and through the plain version, and the bytes read once;
   4. ground path: build_scene(n_cells=20, float32, "cuda") -> make_step for
      3 steps (96,000 tets; ground contact and friction, no self-contact).
-     Counts are zeroed just before: the Hv kernel must have launched once
-     per Newton-operator application. Every state finite, ymin > 0, and
+     Launches are counted from just before: the Hv kernel must have
+     launched once per Newton-operator application. Every state finite, ymin > 0, and
      one step taken twice from one state is bitwise equal;
   5. ground reference: 3 float64 steps at n_cells=2 on the card against
      the same steps on the CPU (the plain path the tests hold to the JAX
@@ -56,11 +56,10 @@ and ends the run with a non-zero exit code (nothing is caught):
      counts, friction pairs, kappa, host syncs, wall seconds. After every
      step: finite, ymin > 0, no edge-triangle intersection. Over the run:
      active and friction pairs appear, tet_hv launched once per operator
-     application (counts zeroed just before), and a post-impact step taken
+     application (launches counted from just before), and a post-impact step taken
      twice from one state is bitwise equal;
-  8. bench timing: the bench scene (n_cells=8, float32, with contact) as
-     bench.py times it, with a shorter window: one warm-up and 10 settling
-     steps, then 6 timed steps; seconds per step and per Newton iteration;
+  8. (none: the step times are portbench's; phase 7 checks that no
+     edge-triangle intersection follows any contact step);
   9. contact reference: at n_cells=2 in float64 with contact, the CPU runs
      8 steps, then each of steps 8-9 is taken from the CPU's state on the
      card and on the CPU. Newton and kappa-doubling counts must be equal;
@@ -79,7 +78,7 @@ and ends the run with a non-zero exit code (nothing is caught):
      the handle rows equal the exact rotation of their rest positions
      (numpy float64) within 12 x 4 eps(f32) x max|x| plus the Newton
      tolerance, the handles turned, tet_hv launched once per operator
-     application (counts zeroed just before), and one step taken twice from
+     application (launches counted from just before), and one step taken twice from
      one state is bitwise equal;
  11. variants reference: small scenes in float64 on the card against the
      CPU, held as phase 9 holds the contact step (same Newton, kappa-
@@ -102,8 +101,8 @@ and ends the run with a non-zero exit code (nothing is caught):
      one iterStats line per Newton iteration, saved states finite, the
      lower box above the plate, no edge-triangle intersection at the end,
      the plate bitwise at its placement, friction pairs against the
-     plate, tet_hv launched once per operator application (counts zeroed
-     just before). Then a second scene file restarts from status5.npz in
+     plate, tet_hv launched once per operator application (launches
+     counted from just before). Then a second scene file restarts from status5.npz in
      a fresh Simulation and runs steps 5-9: its status10.npz must equal
      the first run's bitwise;
  13. host path: the same scene file through the same
@@ -115,7 +114,7 @@ and ends the run with a non-zero exit code (nothing is caught):
      sweep clamps, operator applications, host syncs, wall seconds; after
      every step (outside its time): finite, no edge-triangle intersection,
      the lower box above the plate. Over the run: tet_hv launched once per
-     operator application (counts zeroed just before), info.txt's host
+     operator application (launches counted from just before), info.txt's host
      syncs equal the steps', iterStats.txt one line per line-searched
      iteration, status10.npz finite with the plate in place, and one step
      taken twice from status5.npz in a fresh Simulation bitwise equal;
@@ -193,7 +192,7 @@ and ends the run with a non-zero exit code (nothing is caught):
      paper_battery.run_one in float32 on the device step for 4 steps; its
      record must be PASS (finite, every det > 0, no edge-triangle
      intersection at the end) with tet_hv launched once per operator
-     application (counts zeroed just before); printed: the record, seconds
+     application (launches counted from just before); printed: the record, seconds
      per step, Newton iterations, peak device memory above what was
      allocated when run_one began. Untimed, in a child
      process beside the references: the parent sweep (paper_battery.main,
@@ -207,16 +206,17 @@ and ends the run with a non-zero exit code (nothing is caught):
      (--f32 --jit-step, 2 steps), which must exit 0 and write its
      artifacts.
 
-Order: the timed phases 1-4, 6-8, 10, 12, 13, 15, 18 and 20's run_one run
+Order: the timed phases 1-4, 6, 7, 10, 12, 13, 15, 18 and 20's run_one run
 first, alone on the card; then the references 5, 9 and 11, with 20's sweep
 in one child process, 14 in another and 16, 17 and 19 in a third beside
 them.
 
-The line before the last is the kernels record: tet_hv, accd (the
-ACCD wrappers' launches summed) and grid_pairs, each with its launches over
-the contact, twist, driver, host, QP, sharded and battery paths (counts
-zeroed before each path; the sharded one summed over its ranks; repeats
-and restarts not counted; every path must launch all three), tet_hv timed
+The line before the last is the kernels record: tet_hv, accd and
+grid_pairs, each with its launches over the contact, twist, driver, host,
+QP, sharded and battery paths (the counters `tet_hv.launches`,
+`ccd.kernel_calls` and `grid_pairs.launches` of utils/observability over
+each path; the sharded one summed over its ranks; repeats and restarts
+not counted; every path must launch all three), tet_hv timed
 at the driver shape, accd at the landing's candidate sets in float32 (its
 ms, plain_ms and bound_ms the two families' sum, its n per family),
 grid_pairs at the landing's largest grid call in float32 (ms the walk's
@@ -246,41 +246,26 @@ def check(cond, what):
         raise RuntimeError(f"check failed: {what}")
 
 
-def _zero_launches():
-    """tet_hv's, the ACCD wrappers' and the grid walk's launch counts set to
-    0 before a path."""
-    from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
-    from ipc_tpu_torch.contact.spatial_hash import grid_pairs
-    from ipc_tpu_torch.ops.tet_hv import tet_hv
-
-    tet_hv.launches = accd_pt.launches = accd_ee.launches = grid_pairs.launches = 0
+# the counters of the hand-written kernels' launches (utils/observability)
+KERNEL_COUNTERS = {"tet_hv": "tet_hv.launches", "accd": "ccd.kernel_calls",
+                   "grid_pairs": "grid_pairs.launches"}
 
 
-def _kernel_counts():
-    """(accd_pt's, accd_ee's, grid_pairs') launches: one per ccd_alpha call
-    and family; one or two per grid call and family (count and write passes)."""
-    from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
-    from ipc_tpu_torch.contact.spatial_hash import grid_pairs
+def _launches(since=None):
+    """The kernels' launches so far by kernel, or since `since` (an earlier
+    _launches())."""
+    from ipc_tpu_torch.utils.observability import counter
 
-    return accd_pt.launches, accd_ee.launches, grid_pairs.launches
-
-
-def _restore_kernel_counts(counts):
-    """Puts _kernel_counts() back after a repeat, which is not a main-path run."""
-    from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
-    from ipc_tpu_torch.contact.spatial_hash import grid_pairs
-
-    accd_pt.launches, accd_ee.launches, grid_pairs.launches = counts
+    return {k: counter(c) - (since[k] if since else 0) for k, c in KERNEL_COUNTERS.items()}
 
 
-def _path_launches(tag, hv, accd_pt, accd_ee, grid):
-    """{"tet_hv": hv, "accd": accd_pt + accd_ee, "grid_pairs": grid} of one
-    path, ACCD and the grid walk checked to have run."""
-    accd = accd_pt + accd_ee
-    print(f"[{tag}] accd launches={accd} grid_pairs launches={grid}", flush=True)
-    check(accd > 0, f"ACCD launched on the {tag} path")
-    check(grid > 0, f"the grid walk kernel launched on the {tag} path")
-    return {"tet_hv": hv, "accd": accd, "grid_pairs": grid}
+def _path_launches(tag, launches):
+    """`launches` of one path, ACCD and the grid walk checked to have run."""
+    print(f"[{tag}] accd launches={launches['accd']} grid_pairs launches="
+          f"{launches['grid_pairs']}", flush=True)
+    check(launches["accd"] > 0, f"ACCD launched on the {tag} path")
+    check(launches["grid_pairs"] > 0, f"the grid walk kernel launched on the {tag} path")
+    return launches
 
 
 def phase_device():
@@ -354,7 +339,7 @@ def accd_vs_plain(device, scenes):
     for scene in scenes:
         kept, counters = scene_calls(scene, device)
         print(f"[kernel] accd {scene} step counters: {json.dumps(counters)}")
-        check(counters["ccd.kernel_calls"] == counters["ccd.calls"] == counters["launches"] > 0,
+        check(counters["ccd.kernel_calls"] == counters["ccd.calls"] > 0,
               f"accd {scene}: one kernel launch per ACCD call")
         check(set(kept) == {"pt", "ee"}, f"accd {scene}: both families have candidates")
         for kind, (x4, p4) in sorted(kept.items()):
@@ -437,7 +422,6 @@ def phase_ground_path(device):
     import torch
 
     from ipc_tpu_torch.jit_step import make_step
-    from ipc_tpu_torch.ops.tet_hv import tet_hv
     from ipc_tpu_torch.scenes import build_scene
 
     t0 = time.perf_counter()
@@ -447,7 +431,7 @@ def phase_ground_path(device):
     torch.cuda.synchronize()
     print(f"[ground] scene n_cells=20 float32: {st.mesh.tets.shape[0]} tets, "
           f"{st.mesh.x_rest.shape[0]} verts, setup {time.perf_counter() - t0:.2f} s")
-    tet_hv.launches = 0
+    l0 = _launches()
     ops0, syncs0 = step.operator_applications, step.host_syncs
     total = 0.0
     for i in range(3):
@@ -463,7 +447,7 @@ def phase_ground_path(device):
               f"kappa_doublings={stats.kappa_doublings} sweep_clamps={stats.sweep_clamps} "
               f"operator_applications={step.operator_applications - ops_i} "
               f"host_syncs={step.host_syncs - syncs_i} ymin={ymin:.6g} wall_s={wall:.4f}")
-    launches = tet_hv.launches
+    launches = _launches(l0)["tet_hv"]
     ops = step.operator_applications - ops0
     print(f"[ground] 3 steps in {total:.3f} s; tet_hv launches={launches} "
           f"operator applications={ops} host syncs={step.host_syncs - syncs0}")
@@ -540,7 +524,6 @@ def phase_contact_path(device):
     import torch
 
     from ipc_tpu_torch.jit_step import make_step
-    from ipc_tpu_torch.ops.tet_hv import tet_hv
     from ipc_tpu_torch.scenes import build_scene
 
     t0 = time.perf_counter()
@@ -552,7 +535,7 @@ def phase_contact_path(device):
     print(f"[contact] scene n_cells=20 float32 with self-contact: {st.mesh.tets.shape[0]} "
           f"tets, {st.mesh.x_rest.shape[0]} verts, broad phase {sc.broadphase}, setup "
           f"{time.perf_counter() - t0:.2f} s")
-    _zero_launches()
+    l0 = _launches()
     ops0, syncs0 = step.operator_applications, step.host_syncs
     total, newton = 0.0, 0
     saw_active = saw_fric = False
@@ -585,7 +568,8 @@ def phase_contact_path(device):
         saw_fric |= s.fric_count > 0
         if active and s.fric_count > 0:
             post_impact = pre
-    launches = tet_hv.launches
+    counts = _launches(l0)
+    launches = counts["tet_hv"]
     ops = step.operator_applications - ops0
     print(f"[contact] 10 steps in {total:.3f} s, {newton} Newton iterations "
           f"({total / max(newton, 1):.4f} s per iteration); tet_hv launches={launches} "
@@ -594,7 +578,7 @@ def phase_contact_path(device):
     check(saw_fric, "self-friction pairs were captured")
     check(launches > 0, "tet_hv launched on the contact path")
     check(launches == ops, "one tet_hv launch per operator application (contact)")
-    counts = _path_launches("contact", launches, *_kernel_counts())
+    _path_launches("contact", counts)
     _bitwise_repeat(step, post_impact, "contact")
     return counts, (st, qp_lead)
 
@@ -620,13 +604,13 @@ def phase_qp_path(device, lead, n_steps=2):
     15): the contact path's boxes (96,000 tets, ground half-space and
     self-contact) from its state after step 7, through
     QPStepper(mode="SQP", constraint_type="graphics") for n_steps steps.
-    Returns the run's tet_hv and ACCD launches (the repeat's not counted)."""
+    Returns the run's kernel launches (the repeat's not counted)."""
     import torch
 
-    from ipc_tpu_torch.ops.tet_hv import tet_hv
     from ipc_tpu_torch.qp import stepper as qp_stepper
     from ipc_tpu_torch.qp.admm import admm_qp
     from ipc_tpu_torch.qp.stepper import QPStepper
+    from ipc_tpu_torch.utils.observability import counter
 
     st, state = lead if lead is not None else _qp_lead(device)
     q = QPStepper(st.mesh, st.meta, st.p, halfspaces=st.halfspaces, self_contact=st.sc,
@@ -634,12 +618,12 @@ def phase_qp_path(device, lead, n_steps=2):
     n_lower = st.mesh.x_rest.shape[0] // 2
     mid = 0.5 * (st.mesh.x_rest[:n_lower, 1].min() + st.mesh.x_rest[:n_lower, 1].max()).item()
     _sync(device)
-    _zero_launches()
+    l0 = _launches()
     ops0 = q.operator_applications
     total, repeat = 0.0, None
     for i in range(n_steps):
         ops_i, syncs_i, pcg_i, hv_i = (q.operator_applications, q.host_syncs,
-                                       q.pcg_iterations, tet_hv.launches)
+                                       q.pcg_iterations, counter("tet_hv.launches"))
         t0 = time.perf_counter()
         nxt, qs = q.step(state)
         _sync(device)
@@ -650,7 +634,7 @@ def phase_qp_path(device, lead, n_steps=2):
         ymin = nxt.x[:, 1].min().item()
         upper = nxt.x[n_lower:, 1].min().item()
         hit = bool(st.sc.has_intersection(nxt.x)[0])
-        ops, hv = q.operator_applications - ops_i, tet_hv.launches - hv_i
+        ops, hv = q.operator_applications - ops_i, counter("tet_hv.launches") - hv_i
         print(f"[qp] step {8 + i}: sqp_iters={qs.iters} admm_iters={qs.pcg_iters} "
               f"active={qs.n_constraints[-1]} pcg_iters={q.pcg_iterations - pcg_i} "
               f"tet_hv_launches={hv} operator_applications={ops} "
@@ -662,7 +646,8 @@ def phase_qp_path(device, lead, n_steps=2):
         check(hv == ops, "one tet_hv launch per operator application (QP path)")
         repeat = (state, nxt)
         state = nxt
-    launches, kernels = tet_hv.launches, _kernel_counts()
+    counts = _launches(l0)
+    launches = counts["tet_hv"]
     check(launches == q.operator_applications - ops0 > 0, "tet_hv launched on the QP path")
     print(f"[qp] {n_steps} steps in {total:.3f} s ({total / n_steps:.4f} s per step); "
           f"tet_hv launches={launches}", flush=True)
@@ -679,24 +664,23 @@ def phase_qp_path(device, lead, n_steps=2):
     check(same, "QP step bitwise repeatable")
     print(f"[qp] its second ADMM call: {traced['rows']} rows, {traced['admm']} ADMM and "
           f"{traced['pcg']} PCG iterations; tet_hv calls the card ran={traced['device']} "
-          f"tet_hv.launches={traced['counted']} operator applications={traced['ops']}",
+          f"tet_hv.launches={traced['counted']} operator.applications={traced['ops']}",
           flush=True)
     check(traced["admm"] > 1 and traced["rows"] > 0, "the traced ADMM call ran its graphs")
     check(traced["device"] == traced["counted"] == traced["ops"],
           "the device ran one tet_hv launch per counted launch and operator application, "
           "graph replays included (QP path)")
-    tet_hv.launches = launches  # the repeat's launches are not the main run's
-    _restore_kernel_counts(kernels)
-    return _path_launches("qp", launches, *kernels)
+    return _path_launches("qp", counts)
 
 
 def _traced_second_call(admm_qp, q, traced):
     """admm_qp, whose second call (active rows, ADMM's three CUDA graphs
     captured and replayed) fills `traced` with the tet_hv calls the card
     ran (the kernel's device counter, hv_timing.device_launches) beside
-    tet_hv.launches and q's operator applications over the call."""
+    the counters `tet_hv.launches` and `operator.applications` over the
+    call."""
     from ipc_tpu_torch.hv_timing import device_launches
-    from ipc_tpu_torch.ops.tet_hv import tet_hv
+    from ipc_tpu_torch.utils.observability import counter
 
     calls = []
 
@@ -704,43 +688,15 @@ def _traced_second_call(admm_qp, q, traced):
         calls.append(1)
         if len(calls) != 2:
             return admm_qp(*a, **kw)
-        n0, ops0, pcg0 = tet_hv.launches, q.operator_applications, q.pcg_iterations
+        n0, ops0, pcg0 = (counter("tet_hv.launches"), counter("operator.applications"),
+                          counter("admm.pcg_iters"))
         out, n = device_launches(lambda: admm_qp(*a, **kw), q.device)
-        traced.update(device=n, counted=tet_hv.launches - n0,
-                      ops=q.operator_applications - ops0, admm=out[2],
-                      pcg=q.pcg_iterations - pcg0, rows=int(a[2].shape[0]))
+        traced.update(device=n, counted=counter("tet_hv.launches") - n0,
+                      ops=counter("operator.applications") - ops0, admm=out[2],
+                      pcg=counter("admm.pcg_iters") - pcg0, rows=int(a[2].shape[0]))
         return out
 
     return admm
-
-
-def phase_bench_timing(device):
-    import torch
-
-    from ipc_tpu_torch.jit_step import make_step
-    from ipc_tpu_torch.scenes import build_scene
-
-    st = build_scene(8, torch.float32, device, with_contact=True)
-    step = make_step(st)
-    state = st.initial_state()
-    for _ in range(11):  # warm-up + settle into the impact phase
-        state, _ = step(state)
-    torch.cuda.synchronize()
-    n_steps, newton, syncs0 = 6, 0, step.host_syncs
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        state, s = step(state)
-        newton += s.newton_iters
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    ymin = _check_state(state)
-    hit, _ = st.sc.has_intersection(state.x)
-    print(f"[bench] n_cells=8 float32 with contact ({st.mesh.tets.shape[0]} tets), steps "
-          f"11-{10 + n_steps}: {wall / n_steps:.4f} s per step, "
-          f"{wall / max(newton, 1):.4f} s per Newton "
-          f"iteration ({newton} iterations, {(step.host_syncs - syncs0) / n_steps:.1f} "
-          f"host syncs per step), ymin={ymin:.6g} intersection={bool(hit)}")
-    check(not bool(hit), "no intersection in the bench scene")
 
 
 def _contact_lead(cpu_step=None):
@@ -803,7 +759,6 @@ def phase_twist_path(device, n=100, n_steps=12):
 
     from ipc_tpu_torch.jit_step import make_step
     from ipc_tpu_torch.models.primitives import mat
-    from ipc_tpu_torch.ops.tet_hv import tet_hv
     from ipc_tpu_torch.scenes import build_twist_scene
 
     t0 = time.perf_counter()
@@ -816,7 +771,7 @@ def phase_twist_path(device, n=100, n_steps=12):
           f"{st.mesh.x_rest.shape[0]} verts, {st.mesh.surf_tris.shape[0]} surface triangles, "
           f"{int(st.mesh.dbc_mask.sum())} handle verts, broad phase {sc.broadphase}, setup "
           f"{time.perf_counter() - t0:.2f} s")
-    _zero_launches()
+    l0 = _launches()
     ops0, syncs0 = step.operator_applications, step.host_syncs
     total, newton, pcg = 0.0, 0, 0
     pre = state
@@ -845,7 +800,8 @@ def phase_twist_path(device, n=100, n_steps=12):
         check(not hit, "no edge-triangle intersection after a twist step")
         check(det > 0.0, "no inverted tet after a twist step")
         check(s.script_scale == 1.0, "the scripted handle motion completes")
-    launches = tet_hv.launches
+    counts = _launches(l0)
+    launches = counts["tet_hv"]
     ops = step.operator_applications - ops0
     syncs = step.host_syncs - syncs0
     print(f"[twist] {n_steps} steps in {total:.3f} s ({total / n_steps:.4f} s per step), "
@@ -854,7 +810,7 @@ def phase_twist_path(device, n=100, n_steps=12):
           f"syncs={syncs} ({syncs / n_steps:.1f} per step)")
     check(launches > 0, "tet_hv launched on the twist path")
     check(launches == ops, "one tet_hv launch per operator application (twist)")
-    counts = _path_launches("twist", launches, *_kernel_counts())
+    _path_launches("twist", counts)
     # the handles against the exact rotation of their rest positions
     V, _ = mat(n, size=1.0)
     x = state.x.double().cpu().numpy()
@@ -1227,7 +1183,7 @@ def _driver_scene_files(name, n_cells):
 
 def phase_driver_path(device, n_cells=20):
     """The scene-file driver at full width (module docstring, phase 12), in
-    build/driver_path/ of this checkout. Returns the run's tet_hv and ACCD
+    build/driver_path/ of this checkout. Returns the run's kernel
     launches."""
     import os
 
@@ -1235,7 +1191,6 @@ def phase_driver_path(device, n_cells=20):
 
     from ipc_tpu_torch.__main__ import main as cli_main
     from ipc_tpu_torch.config import load_config
-    from ipc_tpu_torch.ops.tet_hv import tet_hv
     from ipc_tpu_torch.sim import Simulation
 
     workdir, scene, V = _driver_scene_files("driver_path", n_cells)
@@ -1244,11 +1199,12 @@ def phase_driver_path(device, n_cells=20):
     if torch.device(device).type != "cuda":  # a CPU rehearsal; the card is the default
         args += ["--device", str(device)]
 
-    _zero_launches()
+    l0 = _launches()
     t0 = time.perf_counter()
     check(cli_main([scene, "-o", out] + args) == 0, "the CLI run exits 0")
     wall = time.perf_counter() - t0
-    launches, kernels = tet_hv.launches, _kernel_counts()
+    counts = _launches(l0)
+    launches = counts["tet_hv"]
     names = ["config.txt", "iterStats.txt", "sysE.txt", "sysM.txt", "sysL.txt", "info.txt",
              "resultsStats.txt"] + [f"{a}{k}.{b}" for k in (5, 10)
                                     for a, b in (("status", "npz"), ("surf", "obj"))]
@@ -1322,9 +1278,7 @@ def phase_driver_path(device, n_cells=20):
     print(f"[driver] restart from status5.npz, steps 5-9 in {time.perf_counter() - t0:.3f} s: "
           f"status10 bitwise equal={same}")
     check(same, "a restart from status5 reproduces status10 bitwise")
-    tet_hv.launches = launches  # the restart's launches are not the main run's
-    _restore_kernel_counts(kernels)
-    return _path_launches("driver", launches, *kernels)
+    return _path_launches("driver", counts)
 
 
 def _sync(device):
@@ -1342,7 +1296,7 @@ def _host_counts(stats):
 
 def phase_host_path(device, n_cells=20, n_steps=10):
     """The host path at full width (module docstring, phase 13), in
-    build/host_path/ of this checkout. Returns the run's tet_hv and ACCD
+    build/host_path/ of this checkout. Returns the run's kernel
     launches."""
     import os
 
@@ -1350,7 +1304,6 @@ def phase_host_path(device, n_cells=20, n_steps=10):
 
     from ipc_tpu_torch.__main__ import main as cli_main
     from ipc_tpu_torch.config import load_config
-    from ipc_tpu_torch.ops.tet_hv import tet_hv
     from ipc_tpu_torch.sim import Simulation
     from ipc_tpu_torch.timestepper import IPCStepper
     from ipc_tpu_torch.utils.observability import load_status
@@ -1388,7 +1341,7 @@ def phase_host_path(device, n_cells=20, n_steps=10):
         check(ymin > 0.0, "the lower box stays above the plate")
         return nxt, st
 
-    _zero_launches()
+    l0 = _launches()
     IPCStepper.step = checked_step
     try:
         t0 = time.perf_counter()
@@ -1396,7 +1349,8 @@ def phase_host_path(device, n_cells=20, n_steps=10):
         wall = time.perf_counter() - t0
     finally:
         IPCStepper.step = host_step
-    launches, kernels = tet_hv.launches, _kernel_counts()
+    counts = _launches(l0)
+    launches = counts["tet_hv"]
     with open(os.path.join(out, "info.txt")) as f:
         info = json.load(f)
     stats = info["step_stats"]
@@ -1435,9 +1389,7 @@ def phase_host_path(device, n_cells=20, n_steps=10):
     same = bool(torch.equal(a.x, b.x))
     print(f"[host] one step twice from status5.npz: bitwise_equal={same}")
     check(same, "host step bitwise repeatable")
-    tet_hv.launches = launches  # the repeat's launches are not the main run's
-    _restore_kernel_counts(kernels)
-    return _path_launches("host", launches, *kernels)
+    return _path_launches("host", counts)
 
 
 def _host_snapshot(st):
@@ -1669,7 +1621,6 @@ def _sharded_job(rank, world, device, spec):
 
     from ipc_tpu_torch.contact import spatial_hash as SH
     from ipc_tpu_torch.convert import state_from_numpy
-    from ipc_tpu_torch.ops.tet_hv import tet_hv
     from ipc_tpu_torch.parallel import jobs
     from ipc_tpu_torch.parallel.sharding import replicate, shard_state
 
@@ -1690,10 +1641,7 @@ def _sharded_job(rank, world, device, spec):
         s, last = jobs.steps(st, step, pre, 1)
         out["rows"] += rows + last
         if spec.get("repeat_last"):
-            launches0, kernels0 = tet_hv.launches, _kernel_counts()
             again, _ = step(pre)
-            tet_hv.launches = launches0  # a comparison, not a main-path run
-            _restore_kernel_counts(kernels0)
             out["rows"][-1]["repeat_equal"] = bool(torch.equal(again.x, s.x))
     return dict(jobs.rank_info(st, rank), **out)
 
@@ -1769,9 +1717,10 @@ def phase_sharded_path(device, lead, ranks=2):
         rep = o["rows"][-1]["repeat_equal"]
         print(f"[sharded] rank {o['rank']}: step 9 twice from one state: bitwise_equal={rep}")
         check(rep, "sharded step bitwise repeatable")
-    return _path_launches("sharded", sum(r["tet_hv_launches"] for o in outs for r in o["rows"]),
-                          sum(r["accd_launches"] for o in outs for r in o["rows"]), 0,
-                          sum(r["grid_launches"] for o in outs for r in o["rows"]))
+    ranks_rows = [r for o in outs for r in o["rows"]]
+    return _path_launches("sharded", {k: sum(r[f] for r in ranks_rows) for k, f in (
+        ("tet_hv", "tet_hv_launches"), ("accd", "accd_launches"),
+        ("grid_pairs", "grid_launches"))})
 
 
 def _sharded_cpu_case(patterns=6):
@@ -1882,13 +1831,12 @@ def _battery_dir(*parts):
 
 def phase_battery_path(device, n=100, n_steps=4):
     """The paper battery's run_one at full width (module docstring, phase
-    20), in build/battery/ of this checkout. Returns its tet_hv and ACCD
+    20), in build/battery/ of this checkout. Returns its kernel
     launches."""
     import shutil
 
     import torch
 
-    from ipc_tpu_torch.ops.tet_hv import tet_hv
     from ipc_tpu_torch.tools import paper_battery
     from ipc_tpu_torch.tools.twist_scenes import write_twist_scene
 
@@ -1897,12 +1845,13 @@ def phase_battery_path(device, n=100, n_steps=4):
     scene = write_twist_scene(_battery_dir(), n)
     print(f"[battery] wrote {scene} (mat({n}) as .msh) in {time.perf_counter() - t0:.2f} s")
     counts = {}
-    _zero_launches()
+    l0 = _launches()
     t0 = time.perf_counter()
     rec = paper_battery.run_one(scene, n_steps, 240.0, dtype=torch.float32, use_jit=True,
                                 device=device, counts=counts)
     wall = time.perf_counter() - t0
-    launches, kernels = tet_hv.launches, _kernel_counts()
+    kernels = _launches(l0)
+    launches = kernels["tet_hv"]
     print(f"[battery] record {json.dumps(rec)}")
     print(f"[battery] matTwist{n}: {rec['tets']} tets, {rec['verts']} verts, path "
           f"{rec['path']}, {rec['steps']} steps in {rec['secs']} s "
@@ -1918,7 +1867,7 @@ def phase_battery_path(device, n=100, n_steps=4):
           "the battery ran the device step for every step at full width")
     check(launches > 0 and launches == counts["operator_applications"],
           "one tet_hv launch per operator application (battery)")
-    return _path_launches("battery", launches, *kernels)
+    return _path_launches("battery", kernels)
 
 
 STALL_SCENE = """energy NH
@@ -2102,7 +2051,6 @@ def main(argv=None):
         if contact is not None:
             add(contact[0])
             qp_lead = contact[1]
-        run("bench_timing", phase_bench_timing, device)
         add(run("twist_path", phase_twist_path, device))
         add(run("driver_path", phase_driver_path, device))
         add(run("host_path", phase_host_path, device))

@@ -28,8 +28,9 @@ the same stencils in float64):
                         and that bound over kernel_ms. Not the kernel's
                         limit: its live passes' arithmetic is (csrc/accd.cu)
 
-and one per scene with the step's counters: `ccd.calls`,
-`ccd.kernel_calls` and the wrappers' launches over it.
+and one per scene with the step's `ccd.*` counters: `ccd.calls` and
+`ccd.kernel_calls` (launches) among them. The comparison and timing calls
+count in no counter (utils/observability.Capture).
 """
 
 import json
@@ -48,11 +49,10 @@ def scene_calls(name, device, size=None):
     """({"pt": (x4, p4), "ee": (x4, p4)}, counters): the largest ccd_alpha
     call of each family in one device step of scene `name` (SCENES; `size`
     in place of its size) on `device`, and that step's `ccd.*` counters
-    under tracing, with "launches": the ACCD wrappers' launches over it."""
+    under tracing."""
     import dataclasses
 
     from ipc_tpu_torch import jit_step, scenes
-    from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
     from ipc_tpu_torch.utils import observability as obs
 
     builder, default, before = SCENES[name]
@@ -76,7 +76,6 @@ def scene_calls(name, device, size=None):
         return ccd_alpha(x, dx, cand, *args)
 
     sc.ccd_alpha = record
-    launches = accd_pt.launches + accd_ee.launches
     obs.set_tracing(True)
     try:
         step(state)
@@ -84,7 +83,6 @@ def scene_calls(name, device, size=None):
         obs.set_tracing(False)
         del sc.ccd_alpha
     counters = {k: v for k, v in obs.collect()["counters"].items() if k.startswith("ccd.")}
-    counters["launches"] = accd_pt.launches + accd_ee.launches - launches
     return kept, counters
 
 
@@ -121,19 +119,19 @@ def compare(kind, x4, p4):
 def measure(kind, x4, p4):
     """One record (module docstring) of one family's stencils."""
     from ipc_tpu_torch.contact import ccd as CCD
+    from ipc_tpu_torch.utils.observability import Capture
 
     wrapper = CCD.accd_pt if kind == "pt" else CCD.accd_ee
     dist2 = CCD._pt if kind == "pt" else CCD._ee
-    launches = wrapper.launches
-    rec = compare(kind, x4, p4)
     flush_buf = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=x4.device)
 
     def flush():
         flush_buf.sum()
 
-    rec["kernel_ms"] = device_ms(lambda: wrapper(x4, p4), flush)
-    rec["plain_ms"] = device_ms(lambda: CCD._accd(x4, p4, dist2, 0.2, 64), flush)
-    wrapper.launches = launches  # comparison and timing calls are not main-path launches
+    with Capture():  # comparison and timing calls are not main-path launches
+        rec = compare(kind, x4, p4)
+        rec["kernel_ms"] = device_ms(lambda: wrapper(x4, p4), flush)
+        rec["plain_ms"] = device_ms(lambda: CCD._accd(x4, p4, dist2, 0.2, 64), flush)
     size = x4.element_size()
     rec["bytes"] = rec["n"] * (24 + 1) * size
     rec["bound_us"] = 1e6 * rec["bytes"] / HBM_BYTES_PER_S

@@ -13,8 +13,7 @@ pair is done, which changes no result (a done pair keeps its t and done
 never clears), with no host read. For CPU tensors, and only there, they
 run `_accd`, the plain version: the same `max_iter` passes over all pairs
 at once in PyTorch, with the same arithmetic. A CUDA tensor never reaches
-it: the kernel launches or the call raises. Each launch counts in the
-wrapper's `launches` (ops/launch_counts).
+it: the kernel launches or the call raises.
 
 One order of rounding on every device: the plain version sums each dot
 product as ((0 + 1) + 2) (`dot_ordered`, ops/distance.py) and the mean of
@@ -50,7 +49,6 @@ import torch
 
 from ipc_tpu_torch.ops.distance import (cross, dot_ordered, edge_edge_dist2,
                                          point_triangle_dist2, sqrt_rn)
-from ipc_tpu_torch.ops.launch_counts import count_launch, register
 from ipc_tpu_torch.utils.observability import count, count_device, tracing
 
 __all__ = ["accd_pt", "accd_ee", "ti_pt", "ti_ee"]
@@ -128,7 +126,7 @@ def _accd_kernel(kind, x4, p4, slackness, max_iter, want_live, t_max=1.0):
     """The kernel's safe steps (N,) of `kind` ("pt" or "ee") stencils and,
     when `want_live`, each stencil's live passes (N,) int32 (else None).
     Raises for non-contiguous x4 or p4 before touching the card. A launch
-    counts in `ccd.kernel_calls` and in the family wrapper's `launches`."""
+    counts in `ccd.kernel_calls`."""
     if not (x4.is_contiguous() and p4.is_contiguous()):
         raise ValueError("accd: x4 and p4 must be contiguous")
     n = int(x4.shape[0])
@@ -143,7 +141,6 @@ def _accd_kernel(kind, x4, p4, slackness, max_iter, want_live, t_max=1.0):
                  float(t_max), t.data_ptr(), None if live is None else live.data_ptr(),
                  torch.cuda.current_stream(x4.device).cuda_stream)
         count("ccd.kernel_calls")
-        count_launch(accd_pt if kind == "pt" else accd_ee)
         if err != 0:
             raise RuntimeError(f"accd_{kind}: CUDA launch failed with error {err}")
     return t, live
@@ -175,10 +172,6 @@ def accd_pt(x4, p4, slackness=0.2, max_iter=64):
 def accd_ee(x4, p4, slackness=0.2, max_iter=64):
     """Safe steps (N,) of edge-edge stencils (a0, a1, b0, b1)."""
     return _route(accd_ee, "ee", _ee, x4, p4, slackness, max_iter)
-
-
-register(accd_pt)
-register(accd_ee)
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,7 @@ the range check ("broadphase.totals"), one for the kept counts
 ("broadphase.counts") and one more per family whose expansion is split
 ("broadphase.chunks"). A CUDA tensor never reaches it: the kernel
 launches or the call raises. Each launch counts in `grid_pairs.launches`
-(ops/launch_counts). Both routes keep the same pairs (reach_ok writes its
+(utils/observability). Both routes keep the same pairs (reach_ok writes its
 rounding order out).
 
 Counters (utils/observability.py): on the host, always,
@@ -97,7 +97,6 @@ from collections import namedtuple
 import torch
 
 from ipc_tpu_torch.contact import broadphase as BP
-from ipc_tpu_torch.ops.launch_counts import count_launch, register
 from ipc_tpu_torch.parallel.sharding import row_range
 from ipc_tpu_torch.utils.observability import count, count_device, host_read, tracing
 
@@ -254,7 +253,7 @@ def grid_pairs(fam, gap, offsets=None, total=0):
     kept pairs (Nq,) int64; the write pass, given their exclusive scan
     `offsets` and their sum `total`, returns the kept keys q * n_t + t
     (total,) int64 in the kernel's order. A launch (none without queries,
-    and no write pass when `total` is 0) counts in `launches`."""
+    and no write pass when `total` is 0) counts in `grid_pairs.launches`."""
     from ipc_tpu_torch.build import load_kernels
 
     q_box = fam.q_boxes
@@ -276,13 +275,10 @@ def grid_pairs(fam, gap, offsets=None, total=0):
              args[-1].data_ptr() if write else None, out.data_ptr() if write else None,
              torch.cuda.current_stream(dev).cuda_stream)
     if nq:
-        count_launch(grid_pairs)
+        count("grid_pairs.launches")
     if err != 0:
         raise RuntimeError(f"grid_pairs ({topo.kind}): CUDA launch failed with error {err}")
     return out
-
-
-register(grid_pairs)
 
 
 def _chunks(fam, total):

@@ -11,9 +11,9 @@ after steps 0-7, where the upper cube lands. One step of each
 (`scene_calls`) runs with the program's tracing on and the arguments of
 every grid call (`fused_candidates`, `et_candidates`) recorded; the call
 that walks the most rows is kept. Prints one JSON object per scene with
-the step's `broadphase.*` counters, the walk kernel's launches and the
-broad phase's host reads over it,
-and one per (scene, dtype: the scene's float32 and the same call in
+the step's `broadphase.*` counters, the walk kernel's launches
+(`grid_pairs.launches`) and the broad phase's host reads over it, and one
+per (scene, dtype: the scene's float32 and the same call in
 float64):
 
   rows, kept            (query cell, target) rows the call walks, and the
@@ -86,7 +86,6 @@ def scene_calls(name, device):
         return call
 
     SH.fused_candidates, SH.et_candidates = recorder("fused"), recorder("et")
-    launches = SH.grid_pairs.launches
     obs.set_tracing(True)
     try:
         step(state)
@@ -95,9 +94,9 @@ def scene_calls(name, device):
         SH.fused_candidates, SH.et_candidates = originals["fused"], originals["et"]
     rec = obs.collect()
     counters = {k: v for k, v in rec["counters"].items() if k.startswith("broadphase.")}
-    counters["launches"] = SH.grid_pairs.launches - launches
-    counters["reads"] = {k: v for k, v in rec["reads"].items() if k.startswith("broadphase.")}
-    return calls, counters
+    return calls, dict(counters, launches=rec["counters"].get("grid_pairs.launches", 0),
+                       reads={k: v for k, v in rec["reads"].items()
+                              if k.startswith("broadphase.")})
 
 
 def twist_sweep(n, dtype, device):
@@ -147,14 +146,15 @@ def launches_of(calls):
     a count pass per family with queries and a write pass per family whose
     grid keeps a pair. The launches made to find them are not counted."""
     from ipc_tpu_torch.contact import spatial_hash as SH
+    from ipc_tpu_torch.utils.observability import Capture
 
-    launches, n = SH.grid_pairs.launches, 0
-    for call in calls:
-        fams, gap = parts(call)[:2]
-        for f in fams:
-            if f.q_boxes.shape[0]:
-                n += 1 + int(int(SH.grid_pairs(f, gap).sum()) > 0)
-    SH.grid_pairs.launches = launches
+    n = 0
+    with Capture():
+        for call in calls:
+            fams, gap = parts(call)[:2]
+            for f in fams:
+                if f.q_boxes.shape[0]:
+                    n += 1 + int(int(SH.grid_pairs(f, gap).sum()) > 0)
     return n
 
 
@@ -163,12 +163,12 @@ def compare(call, dtype=None):
     dict(rows, kept, equal). The launches are not counted as main-path
     launches."""
     from ipc_tpu_torch.contact import spatial_hash as SH
+    from ipc_tpu_torch.utils.observability import Capture
 
-    launches = SH.grid_pairs.launches
     p = parts(call, dtype)
-    got = SH._run_kernel(*p)
-    want = SH._run_plain(*p)
-    SH.grid_pairs.launches = launches
+    with Capture():
+        got = SH._run_kernel(*p)
+        want = SH._run_plain(*p)
     return dict(rows=_rows(p), kept=[n for _, n in got],
                 equal=all(a.shape == b.shape and torch.equal(a, b) and m == n
                           for (a, m), (b, n) in zip(got, want)))
@@ -203,25 +203,26 @@ def _walk_bytes(p, kept):
 def measure(call, dtype=None, reps=5):
     """One record (module docstring) of one recorded call."""
     from ipc_tpu_torch.contact import spatial_hash as SH
+    from ipc_tpu_torch.utils.observability import Capture
 
-    launches = SH.grid_pairs.launches
     rec = compare(call, dtype)
     p = parts(call, dtype)
     fams, gap = p[0], p[1]
-    counts = [SH.grid_pairs(f, gap) for f in fams]
-    scans = [torch.cumsum(c, dim=0) - c for c in counts]
-    totals = [int(c.sum()) for c in counts]
-    flush_buf = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=fams[0].n.device)
 
     def walk():
         for f, s, t in zip(fams, scans, totals):
             SH.grid_pairs(f, gap)
             SH.grid_pairs(f, gap, s, t)
 
-    rec["walk_ms"] = device_ms(walk, lambda: flush_buf.sum())
-    rec["call_ms"] = _wall_ms(lambda: SH._run_kernel(*parts(call, dtype)), reps)
-    rec["plain_ms"] = _wall_ms(lambda: SH._run_plain(*parts(call, dtype)), reps)
-    SH.grid_pairs.launches = launches  # comparison and timing calls are not main-path launches
+    with Capture():  # comparison and timing calls are not main-path launches
+        counts = [SH.grid_pairs(f, gap) for f in fams]
+        scans = [torch.cumsum(c, dim=0) - c for c in counts]
+        totals = [int(c.sum()) for c in counts]
+        flush_buf = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32,
+                                device=fams[0].n.device)
+        rec["walk_ms"] = device_ms(walk, lambda: flush_buf.sum())
+        rec["call_ms"] = _wall_ms(lambda: SH._run_kernel(*parts(call, dtype)), reps)
+        rec["plain_ms"] = _wall_ms(lambda: SH._run_plain(*parts(call, dtype)), reps)
     once, row = _walk_bytes(p, rec["kept"])
     rec.update(bytes=once, bound_us=1e6 * once / HBM_BYTES_PER_S, row_bytes=row)
     return rec

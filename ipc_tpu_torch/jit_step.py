@@ -112,9 +112,13 @@ from ipc_tpu_torch.parallel import spmd
 from ipc_tpu_torch.scripting import DeviceTurning, device_closures
 from ipc_tpu_torch.step_terms import build_terms
 from ipc_tpu_torch.timestepper import SimState
-from ipc_tpu_torch.utils.observability import count, host_read, host_reads, span
+from ipc_tpu_torch.utils.observability import count, counter, host_read, host_reads, span
 
 __all__ = ["StepStats", "initial_device_aux", "make_step"]
+
+# the Newton loop's and the line search's caps (the JAX make_jit_step's);
+# an AL episode and its projected follow-up share one loop of MAX_NEWTON_AL
+MAX_NEWTON, MAX_NEWTON_AL, MAX_LINESEARCH = 64, 160, 40
 
 
 @dataclass(frozen=True)
@@ -186,13 +190,14 @@ def _check_slice(stepper, burst):
                          f"group); shard_stepper builds a rank's stepper for its group")
 
 
-def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
+def make_step(stepper, burst=None):
     """Build `state -> (state, StepStats)` for an IPCStepper.
 
     The returned function carries three running counts: `operator_applications`
     (Newton-operator applications; each runs the Hv kernel once),
     `host_syncs` (values read back to the host) and `collectives` (calls
-    of parallel/spmd's collectives; 0 with no active group).
+    of parallel/spmd's collectives; 0 with no active group): the
+    registry's counts over the step's calls (utils/observability).
 
     Under an active process group the step is built sharded and runs only
     under that group (module docstring)."""
@@ -203,7 +208,6 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
     dtype = stepper.dtype
     device = stepper.device
     T = build_terms(stepper)
-    counters = T.counters
     dt = stepper.dt
     dtSq = stepper.dtSq
     is_nm = stepper.is_nm
@@ -238,14 +242,14 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
     scripted = need_aux or disp_fn is not None  # the step has a prologue
     # moving-DBC augmented Lagrangian: every DBC vertex is pulled to its
     # full scripted destination when the clamped motion cannot complete
+    max_newton = MAX_NEWTON
     use_al = disp_fn is not None and p.mdbc_al and host_read("build.dbc", dbc.any())
     if use_al:
         al_verts = torch.nonzero(dbc).reshape(-1)
         al_m = mesh.mass[al_verts]
         al_sqrtm = torch.sqrt(al_m)
         cn_mbc = float(stepper.cn_mbc)
-        # the AL episode and its projected follow-up share one loop
-        max_newton = max(max_newton, 160)
+        max_newton = MAX_NEWTON_AL
 
     def masked(mask, a):
         return torch.where(mask, torch.zeros_like(a), a)
@@ -325,7 +329,7 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
         accepted, E_new, stalled) with one host read per trial."""
         E0 = energy(x, act=ls_act, **e_args)
         alpha = alpha0
-        for i in range(max_linesearch):
+        for i in range(MAX_LINESEARCH):
             with span("trial", trial=i):
                 x_try = x + alpha * dx
                 E_try = energy(x_try, act=ls_act, **e_args)
@@ -530,12 +534,12 @@ def make_step(stepper, max_newton=64, max_linesearch=40, burst=None):
                 "planes): initialize SimState.aux with jit_step.initial_device_aux("
                 "stepper) before stepping")
         reads0 = host_reads()
-        coll0 = spmd.collectives()
+        ops0, coll0 = counter("operator.applications"), counter("spmd.collectives")
         with span("step"):
             new_state, stats = advance(state)
-        step.operator_applications = counters["operator"]
+        step.operator_applications += counter("operator.applications") - ops0
         step.host_syncs += host_reads() - reads0
-        step.collectives += spmd.collectives() - coll0
+        step.collectives += counter("spmd.collectives") - coll0
         return new_state, stats
 
     def advance(state):

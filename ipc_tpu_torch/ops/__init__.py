@@ -5,7 +5,6 @@ Submodules (import them directly, as in ipc_tpu.ops):
   compensated   double-float (hi, lo) sums for the f32 line search
   distance      PT/EE squared distances, the EE mollifier and classifiers
   friction      smoothed-Coulomb f0/f1/f2 and tangent bases
-  launch_counts per-wrapper kernel launch counts (CUDA graph replays too)
   scatter       gather-sum tables (deterministic vertex accumulation)
   spd           SPD projection by eigenvalue clamping
   step_bound    inversion-free step-size bound

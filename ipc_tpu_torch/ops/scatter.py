@@ -77,8 +77,8 @@ def make_dynamic_gather_sum(ids, n_out):
     table covers only the ids that occur (`apply.rows`, ascending, unique):
     rows no id touches are exact zeros, written with an `index_copy` over
     unique rows. Building it reads two numbers back to the host in one sync
-    (row count, largest multiplicity; `host_read` site "gather_sum.table"):
-    `apply.host_syncs` is 1, or 0 for an empty set."""
+    (row count, largest multiplicity; `host_read` site "gather_sum.table"),
+    none for an empty set."""
     device = ids.device
     N = int(ids.shape[0])
     if N == 0:
@@ -87,7 +87,6 @@ def make_dynamic_gather_sum(ids, n_out):
                                device=device)
 
         apply.rows = ids
-        apply.host_syncs = 0
         return apply
     sorted_ids, order = torch.sort(ids, stable=True)
     pos = torch.arange(N, device=device)
@@ -110,5 +109,4 @@ def make_dynamic_gather_sum(ids, n_out):
         return out.index_copy(0, rows, summed)
 
     apply.rows = rows
-    apply.host_syncs = 1
     return apply

@@ -7,15 +7,15 @@ Replaces ipc_tpu/ops/pallas_hv.py (the TPU window kernel) plus the
              H_t[3c:3c+3, :] . [v_i0; v_i1; v_i2; v_i3]
 
 `tet_hv` launches the CUDA kernel (csrc/tet_hv.cu) for CUDA tensors and
-counts each call in `tet_hv.launches` (ops/launch_counts: a call made
-while a CUDA graph is captured counts at each replay of the graph). The
+counts each call in the counter `tet_hv.launches` (utils/observability: a
+call made while a CUDA graph is captured counts at each replay). The
 kernel runs in two device launches: pass A writes the per-corner rows
 H_t . v4_t to a (4T,3) scratch (row 4t + c, the layout of the plain
 version's `hv.reshape(-1, 3)`), pass B sums each vertex's rows in the
-table's order. One call is one operator application, so `launches` counts
+table's order. One call is one operator application, so the counter counts
 calls, not device launches; `device_launches(device)` reads the card's own
 count of the calls that ran (pass A counts its grids on the device), to
-hold `launches` against. For CPU tensors, and only there, it computes
+hold the counter against. For CPU tensors, and only there, it computes
 the same sum with `tet_hv_reference`, the plain PyTorch version (the JAX
 package's jnp route: gather, einsum, gather-sum). A CUDA tensor never
 reaches the plain version: the kernel launches or the call raises.
@@ -33,8 +33,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ipc_tpu_torch.ops.launch_counts import count_launch, register
 from ipc_tpu_torch.ops.scatter import gather_table, make_gather_sum
+from ipc_tpu_torch.utils.observability import count
 
 __all__ = ["TetHvTable", "make_tet_hv_table", "tet_hv", "tet_hv_reference", "tet_rows_reference",
            "device_launches"]
@@ -139,11 +139,8 @@ def tet_hv(H, v, table):
              torch.cuda.current_stream(H.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tet_hv: CUDA launch failed with error {err}")
-    count_launch(tet_hv)
+    count("tet_hv.launches")
     return out
-
-
-register(tet_hv)
 
 
 def device_launches(device):

@@ -46,27 +46,24 @@ def _sync(device):
 def steps(st, step, s, n):
     """(the state after n steps of `step` from s, [one record per step])
     (module docstring)."""
-    from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt
-    from ipc_tpu_torch.contact.spatial_hash import grid_pairs
-    from ipc_tpu_torch.ops.tet_hv import tet_hv
+    from ipc_tpu_torch.utils.observability import counter
 
+    launches = ("tet_hv.launches", "ccd.kernel_calls", "grid_pairs.launches")
     rows = []
     for _ in range(n):
-        ops0, launches0, coll0 = step.operator_applications, tet_hv.launches, step.collectives
-        accd0 = accd_pt.launches + accd_ee.launches
-        grid0 = grid_pairs.launches
+        ops0, coll0 = step.operator_applications, step.collectives
+        launches0 = [counter(k) for k in launches]
         _sync(st.device)
         t0 = time.perf_counter()
         s, stats = step(s)
         _sync(st.device)
         wall = time.perf_counter() - t0
-        grid = grid_pairs.launches - grid0
+        hv, accd, grid = (counter(k) - k0 for k, k0 in zip(launches, launches0))
         hit, _ = st.sc.has_intersection(s.x) if st.sc is not None else (False, 0)
         rows.append(dict(
             stats=dataclasses.asdict(stats), wall_s=wall,
             operator_applications=step.operator_applications - ops0,
-            tet_hv_launches=tet_hv.launches - launches0,
-            accd_launches=accd_pt.launches + accd_ee.launches - accd0, grid_launches=grid,
+            tet_hv_launches=hv, accd_launches=accd, grid_launches=grid,
             collectives=step.collectives - coll0, rank_counts=dict(step.rank_counts or {}),
             finite=bool(torch.isfinite(s.x).all() and torch.isfinite(s.v).all()),
             ymin=s.x[:, 1].min().item(), intersection=bool(hit), x=s.x.cpu().numpy()))

@@ -21,7 +21,8 @@ Only all_reduce is used (and broadcast in sharding.replicate): NCCL takes
 them on CUDA tensors, gloo on CPU tensors and, staged through host memory,
 on CUDA tensors too. Every rank must call every collective in the same
 order: a caller never skips one on a rank-local condition (an empty pair
-set on one rank).
+set on one rank). Each all_reduce counts in `spmd.collectives`
+(utils/observability).
 
 The owner rank (rank 0) adds the replicated terms of a sum once (mass,
 half-space blocks, the moving-DBC pull, external forces): its partial is
@@ -33,12 +34,12 @@ same operations in the same order, bit for bit.
 
 import torch
 
-from ipc_tpu_torch.utils.observability import host_read
+from ipc_tpu_torch.utils.observability import count, host_read
 
 __all__ = ["activate", "deactivate", "active_group", "rank", "world", "owner",
-           "all_sum", "df_all_sum", "all_min", "all_any", "sum_ints", "collectives"]
+           "all_sum", "df_all_sum", "all_min", "all_any", "sum_ints"]
 
-_CTX = {"group": None, "rank": 0, "world": 1, "device": None, "calls": 0}
+_CTX = {"group": None, "rank": 0, "world": 1, "device": None}
 
 
 def activate(group, device):
@@ -48,7 +49,7 @@ def activate(group, device):
     import torch.distributed as dist
 
     _CTX.update(group=group, rank=dist.get_rank(group), world=dist.get_world_size(group),
-                device=torch.device(device), calls=0)
+                device=torch.device(device))
 
 
 def deactivate():
@@ -73,15 +74,10 @@ def owner():
     return _CTX["rank"] == 0
 
 
-def collectives():
-    """The collectives called since activate()."""
-    return _CTX["calls"]
-
-
 def _all_reduce(buf, op=None):
     import torch.distributed as dist
 
-    _CTX["calls"] += 1
+    count("spmd.collectives")
     dist.all_reduce(buf, op=dist.ReduceOp.SUM if op is None else op, group=_CTX["group"])
     return buf
 

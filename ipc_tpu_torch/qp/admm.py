@@ -24,7 +24,8 @@ set-up, PCG's iteration (run while PCG reads its residual above
 tolerance) and the z/y update. On CUDA tensors each is a CUDA graph,
 captured once per call: the same kernels in the same order as eager
 calls, at a few graph launches per iteration instead of ~50 eager
-launches per PCG iteration and ~75 per ADMM iteration.
+launches per PCG iteration and ~75 per ADMM iteration. PCG's iterations
+count in `admm.pcg_iters` (utils/observability).
 
 The JAX callers pad the rows to a capacity; the port's are exact-size, so
 K can be 0 (every free-fall step): the primal residual is then 0, as JAX's
@@ -36,36 +37,29 @@ import torch
 
 from ipc_tpu_torch.ops.scatter import make_dynamic_gather_sum
 from ipc_tpu_torch.solver.pcg import CapturedBody, GraphedPCG
-from ipc_tpu_torch.utils.observability import host_read
+from ipc_tpu_torch.utils.observability import count, host_read
 
 __all__ = ["admm_qp"]
 
 
 def admm_qp(P_apply, q, A_rows, A_vids, A_valid, l, precond=None, rho=1e5, sigma=1e-6,
-            iters=200, pcg_tol=1e-4, pcg_maxiter=200, eps_abs=1e-6, counters=None,
-            vert_sum=None):
+            iters=200, pcg_tol=1e-4, pcg_maxiter=200, eps_abs=1e-6, vert_sum=None):
     """Solve the QP; returns (x (V,3), lam (K,), iterations).
 
     P_apply: v (V,3) -> P v (V,3) (matrix-free SPD objective Hessian)
     q: (V,3) linear term
     A_rows: (K,4,3) constraint gradients; A_vids: (K,4) int64 vertex ids;
-    A_valid: (K,) bool (invalid rows inert); l: (K,) lower bounds.
-    counters: a dict whose "syncs" (host reads: the gather-sum's build, the
-    PCG residual tests, one `done` per iteration) and "pcg" (PCG
-    iterations) are added to, or None."""
+    A_valid: (K,) bool (invalid rows inert); l: (K,) lower bounds;
+    vert_sum: A^T's gather-sum over A_vids (built here by default)."""
     K = int(A_rows.shape[0])
     V = int(q.shape[0])
     dtype, device = q.dtype, q.device
-    counters = {} if counters is None else counters
-    counters.setdefault("syncs", 0)
-    counters.setdefault("pcg", 0)
     valid = A_valid
     rows = torch.where(valid[:, None, None], A_rows, torch.zeros_like(A_rows))
     l = torch.where(valid, l, torch.zeros_like(l))
     vids = A_vids.to(torch.int64)
     if vert_sum is None:
         vert_sum = make_dynamic_gather_sum(vids.reshape(-1), V)
-        counters["syncs"] += vert_sum.host_syncs
     zero = torch.zeros((), dtype=dtype, device=device)
     # 0-d tensors of the dtype, as JAX's jnp.asarray(rho, dtype): a CUDA
     # division by a Python scalar multiplies by its reciprocal instead
@@ -100,7 +94,7 @@ def admm_qp(P_apply, q, A_rows, A_vids, A_valid, l, precond=None, rho=1e5, sigma
 
     # the x-update's set-up, PCG's body and the z/y update each run on
     # static buffers: on CUDA each is one graph, captured once per call
-    solver = GraphedPCG(kkt, precond, q, counters)
+    solver = GraphedPCG(kkt, precond, q)
     x = solver.state[0]  # zero: the first PCG starts from x = 0
     z = torch.maximum(A_apply(x), l)
     y = torch.zeros((K,), dtype=dtype, device=device)
@@ -113,15 +107,14 @@ def admm_qp(P_apply, q, A_rows, A_vids, A_valid, l, precond=None, rho=1e5, sigma
         for buf, val in zip((z, y, done), update(x, z, y)):
             buf.copy_(val)
 
-    pre = CapturedBody(pre, [x, z, y] + solver.state[1:], counters)
-    post = CapturedBody(post, [x, z, y, done], counters)
+    pre = CapturedBody(pre, [x, z, y] + solver.state[1:])
+    post = CapturedBody(post, [x, z, y, done])
     k = 0
     while k < iters:
         pre.replay()
-        counters["pcg"] += solver.iterate(pcg_maxiter)
+        count("admm.pcg_iters", solver.iterate(pcg_maxiter))
         post.replay()
         k += 1
-        counters["syncs"] += 1
         if host_read("admm.done", done):
             break
     # lambda >= 0 multipliers of Ax >= l (OSQP's y is their negative)

@@ -32,8 +32,9 @@ are its pairs in that order, then its half-space rows. The JAX package
 pads them to a capacity that grows on overflow (`cap_active`); the port's
 rows are exact-size. Host reads (utils/observability's `host_read`) count
 in `host_syncs`, operator applications in `operator_applications`, and
-the PCG iterations inside ADMM in `pcg_iterations`. `StepStats.pcg_iters` holds the ADMM iteration
-count of each outer iteration, as in the JAX package.
+the PCG iterations inside ADMM (`admm.pcg_iters`) in `pcg_iterations`:
+running counts over the stepper's steps. `StepStats.pcg_iters` holds the
+ADMM iteration count of each outer iteration, as in the JAX package.
 """
 
 import numpy as np
@@ -48,7 +49,7 @@ from ipc_tpu_torch.qp.admm import admm_qp
 from ipc_tpu_torch.qp.constraints import FAMILY_OF_TYPE, constraint_c_grad
 from ipc_tpu_torch.solver.pcg import apply_block_precond, block_jacobi_inverse
 from ipc_tpu_torch.timestepper import IPCStepper, SimState, StepStats
-from ipc_tpu_torch.utils.observability import host_reads
+from ipc_tpu_torch.utils.observability import count, counter, host_reads
 
 __all__ = ["QPStepper"]
 
@@ -76,16 +77,11 @@ class QPStepper(IPCStepper):
         self.constraint_offset = constraint_offset
         self.max_outer = max_outer
         self.fb_tol = 1e-4 * np.sqrt(self.bbox_diag2)
-        self._counters["pcg"] = 0
+        self.pcg_iterations = 0
         self._hv_table = make_tet_hv_table(mesh.tets.cpu().numpy(), int(mesh.x_rest.shape[0]),
                                            self.device)
         self._dix = torch.as_tensor(_DIAG_IX, device=self.device)
         self._zero = torch.zeros((), dtype=self.dtype, device=self.device)
-
-    @property
-    def pcg_iterations(self):
-        """PCG iterations inside ADMM so far (running count)."""
-        return self._counters["pcg"]
 
     # -- the QP's objective (elasticity + inertia, no contact) --------------
 
@@ -114,7 +110,7 @@ class QPStepper(IPCStepper):
         mesh = self.mesh
 
         def P_apply(v):
-            self._counters["operator"] += 1
+            count("operator.applications")
             v = self._dbc_rows(v)
             # JAX then takes v on the DBC rows, where both are zero
             return self._dbc_rows(mesh.mass[:, None] * v + tet_hv(Hel, v, self._hv_table))
@@ -217,7 +213,8 @@ class QPStepper(IPCStepper):
         if spmd.active_group() is not None:
             raise NotImplementedError("QPStepper.step does not run sharded")
         mesh = self.mesh
-        reads0 = host_reads()
+        reads0, ops0, pcg0 = (host_reads(), counter("operator.applications"),
+                              counter("admm.pcg_iters"))
         stats = StepStats()
         x_start = state.x
         x_tilde = self.compute_x_tilde(state)
@@ -249,7 +246,7 @@ class QPStepper(IPCStepper):
                 P_apply, g, all_rows, all_vids,
                 torch.ones((K,), dtype=torch.bool, device=self.device),
                 -all_c + self.constraint_offset, precond=precond, rho=rho, iters=200,
-                eps_abs=eps_abs, counters=self._counters, vert_sum=vert_sum)
+                eps_abs=eps_abs, vert_sum=vert_sum)
             x = x + self._dbc_rows(dx)
 
             # residuals at the new iterate (reference computeQPResidual)
@@ -279,7 +276,9 @@ class QPStepper(IPCStepper):
                     self.mode == "QP" or fb_norm <= self.fb_tol):
                 break
 
-        self._host_syncs += host_reads() - reads0
+        self.host_syncs += host_reads() - reads0
+        self.operator_applications += counter("operator.applications") - ops0
+        self.pcg_iterations += counter("admm.pcg_iters") - pcg0
         v_new = (x - state.x_prev) / self.dt
         a_new = (v_new - state.v) / self.dt
         return (SimState(x=x, x_prev=x, v=v_new, a=a_new, t=state.t + self.dt,

@@ -17,7 +17,7 @@ vertex->aggregate restriction (mass diagonal, `precond_term`), the
 per-vertex block families (half-space barrier and friction) and the pair
 families (k = 4: self-contact barrier and friction), whose (C*C) cells
 change with every active set and get a table built on the device
-(`make_dynamic_gather_sum`; its host reads add to `assemble.host_syncs`).
+(`make_dynamic_gather_sum`, one host read each: site "gather_sum.table").
 
 Under an active process group (parallel/spmd.py) each rank adds its tets'
 and pairs' cells, the owner rank the mass and the per-vertex families too,
@@ -139,9 +139,7 @@ def make_coarse_assembler(agg, C, dbc_mask, dtype, tets=None):
         rows = _corner_pair_blocks(H, k, free[vids])
         ca = agg_t[vids]
         cells = (ca[:, :, None] * C + ca[:, None, :]).reshape(-1)
-        gsum = make_dynamic_gather_sum(cells, C * C)
-        assemble.host_syncs += gsum.host_syncs
-        return gsum(rows)
+        return make_dynamic_gather_sum(cells, C * C)(rows)
 
     def assemble(mass, contributions, tet_H=None):
         A = torch.zeros((C * C, 3, 3), dtype=dtype, device=device)
@@ -167,8 +165,6 @@ def make_coarse_assembler(agg, C, dbc_mask, dtype, tets=None):
         tr = torch.trace(Ad) / (3 * C)
         Ad = Ad + (1e-8 * tr + 1e-30) * torch.eye(3 * C, dtype=dtype, device=device)
         return torch.linalg.inv(Ad)
-
-    assemble.host_syncs = 0
 
     def precond_term(Ainv, r):
         rc = gsum_agg(r * free[:, None])

@@ -23,8 +23,7 @@ number of iterations; no collective sits in the loop itself.
 
 import torch
 
-from ipc_tpu_torch.ops import launch_counts
-from ipc_tpu_torch.utils.observability import host_read, host_reads
+from ipc_tpu_torch.utils.observability import Capture, host_read
 
 __all__ = ["pcg", "pcg_start", "pcg_iteration", "GraphedPCG", "CapturedBody",
            "block_jacobi_inverse", "apply_block_precond"]
@@ -82,12 +81,12 @@ class CapturedBody:
     replay launches the graph. Before the capture the body runs once on
     copies of the buffers, on the capture stream (eager launches, counted
     as such), so that every library it calls is set up outside the
-    capture. The capture itself runs nothing: the operator applications it
-    recorded in counters["operator"] are taken back, and each replay adds
-    them, and the kernel launches the capture recorded
-    (ops/launch_counts). On other devices `replay()` calls the body."""
+    capture. The capture itself runs nothing: what it counts (operator
+    applications, kernel launches) goes into a `Capture` scope
+    (utils/observability), whose record each replay adds. On other
+    devices `replay()` calls the body."""
 
-    def __init__(self, body, buffers, counters):
+    def __init__(self, body, buffers):
         self.body, self.buffers, self.graph = body, buffers, None
         if buffers[0].device.type != "cuda":
             return
@@ -95,30 +94,25 @@ class CapturedBody:
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             body(*[t.clone() for t in buffers])
-        ops0, kernels0 = counters["operator"], launch_counts.captured()
         # capture_begin/end, not the torch.cuda.graph context: that one also
         # runs gc.collect() and empties the allocator's cache at every
         # capture, and an ADMM solve captures at every call
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
+        self.capture = Capture()
+        with torch.cuda.stream(side), self.capture:
             self.graph.capture_begin()
             try:
                 body(*buffers)
             finally:
                 self.graph.capture_end()
         torch.cuda.current_stream().wait_stream(side)
-        self.ops = counters["operator"] - ops0
-        self.kernels = tuple(n - n0 for n, n0 in zip(launch_counts.captured(), kernels0))
-        counters["operator"] = ops0
-        self.counters = counters
 
     def replay(self):
         if self.graph is None:
             self.body(*self.buffers)
             return
         self.graph.replay()
-        self.counters["operator"] += self.ops
-        launch_counts.count_replay(self.kernels)
+        self.capture.replay()
 
 
 class GraphedPCG:
@@ -131,17 +125,11 @@ class GraphedPCG:
     buffer (a caller may capture it into its own graph), `iterate(maxiter)`
     runs `pcg`'s loop of `pcg_iteration` in a `CapturedBody` made at the
     first iteration it needs: the iterate in `state[0]` and the count are
-    those `pcg` returns from the same x0.
-    counters: a dict whose "operator" counts the operator's applications
-    (the operator adds one per eager call) and "syncs" the residual tests
-    (the host reads `iterate` makes), or None."""
+    those `pcg` returns from the same x0, with the same host reads."""
 
-    def __init__(self, operator, precond, like, counters=None):
+    def __init__(self, operator, precond, like):
         self.operator = operator
         self.precond = precond
-        self.counters = {} if counters is None else counters
-        self.counters.setdefault("operator", 0)
-        self.counters.setdefault("syncs", 0)
         zero = torch.zeros((), dtype=like.dtype, device=like.device)
         self.state = [torch.zeros_like(like), torch.zeros_like(like), torch.zeros_like(like),
                       zero.clone(), zero.clone(), zero.clone()]
@@ -161,14 +149,12 @@ class GraphedPCG:
     def iterate(self, maxiter):
         """`pcg`'s loop from the started buffers; returns the iterations."""
         rr, atol2 = self.state[4:]
-        reads0 = host_reads()
         k = 0
         while k < maxiter and host_read("pcg.residual", rr > atol2):
             if self.body is None:
-                self.body = CapturedBody(self._body, self.state[:5], self.counters)
+                self.body = CapturedBody(self._body, self.state[:5])
             self.body.replay()
             k += 1
-        self.counters["syncs"] += host_reads() - reads0
         return k
 
 

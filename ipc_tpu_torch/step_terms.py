@@ -44,11 +44,11 @@ collectives are identities and every function computes what it did
 before, in the same order.
 
 Functions take the barrier's `dHat` as an argument (the host path's dHat
-homotopy changes it between sub-solves). `counters["operator"]` counts
-operator applications (each runs tet_hv once). Values read back to the
-host (PCG's residual tests, `e_float`, the direct solves' copies) go
-through utils/observability's `host_read`, which counts them; the layers
-are spans there: `search_dir` with `elasticity`, `pcg` and
+homotopy changes it between sub-solves). Each operator application (one
+tet_hv call) counts in the counter `operator.applications`, and values
+read back to the host (PCG's residual tests, `e_float`, the direct solves'
+copies) go through `host_read`, which counts them (utils/observability);
+the layers are spans there: `search_dir` with `elasticity`, `pcg` and
 `coarse_assemble` inside (the self-contact pipeline adds `active_set` and
 `pairs`).
 """
@@ -62,18 +62,17 @@ from ipc_tpu_torch.ops.tet_hv import make_tet_hv_table, tet_hv
 from ipc_tpu_torch.parallel import spmd
 from ipc_tpu_torch.solver.coarse import build_aggregates, make_coarse_assembler
 from ipc_tpu_torch.solver.pcg import apply_block_precond, block_jacobi_inverse, pcg
-from ipc_tpu_torch.utils.observability import host_read, reading, span
+from ipc_tpu_torch.utils.observability import count, host_read, reading, span
 
 __all__ = ["build_terms"]
 
 
-def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
+def build_terms(stepper, dbc=None, host=False, like=None):
     """The terms of `stepper`'s objective (module docstring).
 
     dbc: the Dirichlet mask (V,) bool (default: the mesh's); host: the JAX
     host path's variants; like: a terms namespace of the same stepper whose
-    static tables (Hv table, aggregates) are reused; counters: a dict with
-    "operator" to add to (a new one by default)."""
+    static tables (Hv table, aggregates) are reused."""
     mesh = stepper.mesh
     p = stepper.p
     sc = stepper.sc
@@ -111,7 +110,6 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
     # the rank that adds the replicated terms (every rank without a group)
     owner = spmd.owner()
     linsys = p.linsys if host else "pcg"
-    counters = dict(operator=0) if counters is None else counters
 
     def masked(mask, a):
         return torch.where(mask, torch.zeros_like(a), a)
@@ -357,7 +355,7 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
         al_w = (alw["w"] * alw["m"])[:, None] if alw is not None else None
 
         def operator(v):
-            counters["operator"] += 1
+            count("operator.applications")
             v = masked(dbc_t[:, None], v)
             if owner:
                 out = mesh.mass[:, None] * v
@@ -498,7 +496,7 @@ def build_terms(stepper, dbc=None, host=False, like=None, counters=None):
 
     return types.SimpleNamespace(
         hv_table=hv_table, aggregates=aggregates, coarse_assemble=coarse_assemble,
-        lag_coarse=lag_coarse, counters=counters, dbc=dbc, dbc_sv=dbc_sv,
+        lag_coarse=lag_coarse, dbc=dbc, dbc_sv=dbc_sv,
         e_leq=e_leq, e_out=e_out, e_float=e_float, energy=energy, gradient=gradient,
         grad_no_contact=grad_no_contact, grad_contact_unit=grad_contact_unit,
         search_dir=search_dir, newton_system=newton_system, jacobi_dir=jacobi_dir,

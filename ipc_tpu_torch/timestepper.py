@@ -44,7 +44,8 @@ the stepper's device, the card unless the mesh lives on the CPU. Every
 value read back to the host goes through utils/observability's
 `host_read` and counts in `host_syncs`, and every Newton operator
 application (one tet_hv call each) in `operator_applications` (running
-counts over the stepper's host steps).
+counts over the stepper's host steps: utils/observability's counts over
+each step).
 
 The JAX candidate sets have fixed capacities that grow on overflow; the
 port's are exact-size, so the `ensure_*` regrow loops fall away. The kappa
@@ -62,7 +63,7 @@ import torch
 
 from ipc_tpu_torch.contact import selfcollision as SC
 from ipc_tpu_torch.parallel import spmd
-from ipc_tpu_torch.utils.observability import host_read, host_reads, reading
+from ipc_tpu_torch.utils.observability import counter, host_read, host_reads, reading
 
 __all__ = ["SimParams", "SimState", "IPCStepper", "StepStats"]
 
@@ -219,21 +220,11 @@ class IPCStepper:
         # step: one set on the mesh's mask, one with every vertex free for
         # the moving-DBC episode
         self._terms = {}
-        self._counters = dict(operator=0)
-        self._host_syncs = 0
+        # running counts of the host steps (module docstring)
+        self.operator_applications = 0
+        self.host_syncs = 0
         # one rank's part of a sharded run (parallel.sharding.shard_stepper)
         self.shard = None
-
-    @property
-    def operator_applications(self):
-        """Newton-operator applications of the host path so far (one tet_hv
-        call each)."""
-        return self._counters["operator"]
-
-    @property
-    def host_syncs(self):
-        """Values the host path has read back to the host so far."""
-        return self._host_syncs
 
     # ------------------------------------------------------------------
     # host reads and writes (each read counts in host_syncs)
@@ -259,7 +250,7 @@ class IPCStepper:
             like = self._terms.get(not free)
             self._terms[free] = build_terms(
                 self, dbc=torch.zeros_like(self.mesh.dbc_mask) if free else None,
-                host=True, like=like, counters=self._counters)
+                host=True, like=like)
         return self._terms[free]
 
     # ------------------------------------------------------------------
@@ -492,7 +483,7 @@ class IPCStepper:
                                       "jit_step.make_step under a process group")
         p = self.p
         T = self._terms_for()
-        reads0 = host_reads()
+        reads0, ops0 = host_reads(), counter("operator.applications")
         stats = StepStats()
         x = state.x
         dHat = self.dHat
@@ -611,7 +602,8 @@ class IPCStepper:
             v_new = (x - state.x_prev) / self.dt
             a_new = (v_new - state.v) / self.dt
         dx_el = (x - x_tilde) if p.warm_start >= 3 else None
-        self._host_syncs += host_reads() - reads0
+        self.host_syncs += host_reads() - reads0
+        self.operator_applications += counter("operator.applications") - ops0
         return (SimState(x=x, x_prev=x, v=v_new, a=a_new, t=state.t + self.dt,
                          step=state.step + 1, dx_el=dx_el), stats)
 

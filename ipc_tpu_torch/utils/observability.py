@@ -38,7 +38,15 @@ result):
                         while tracing is on the read is also a leaf span
                         `host_read` with `site=`, whose duration is the
                         time the host waited for the device.
-  count(name, n)        a host counter, always on.
+  count(name, n)        a host counter, always on: the one way the port
+                        counts (kernel launches, operator applications,
+                        collectives, the layers' counters); `counter(name)`
+                        reads its running total since import.
+  Capture()             a capture scope for CUDA graphs: while it is open
+                        every `count` goes into its record `counts` and not
+                        into the totals; each `replay()` adds the record.
+                        A scope never replayed keeps its counts out of the
+                        totals (calls made for a comparison or a timing).
   count_device(name, t) adds a 0-d device tensor to a device accumulator,
                         only while tracing is on (no host read).
   set_tracing(on)       the one switch; `collect()` returns the recording
@@ -70,6 +78,8 @@ __all__ = [
     "host_reads",
     "host_reads_by_site",
     "count",
+    "counter",
+    "Capture",
     "count_device",
     "set_tracing",
     "tracing",
@@ -107,6 +117,7 @@ _kept = None  # the recording of the last traced stretch, after tracing went off
 _READS = defaultdict(int)  # host reads by site, since import
 _reads_total = 0
 _COUNTS = defaultdict(int)  # host counters, since import
+_into = _COUNTS  # where `count` adds: the totals, or the open Capture's record
 
 
 class _Recording:
@@ -193,8 +204,38 @@ def host_reads_by_site():
 
 
 def count(name, n=1):
-    """Adds n to a host counter (always on)."""
-    _COUNTS[name] += n
+    """Adds n to a host counter (always on; into the open Capture's record
+    instead while one is open)."""
+    _into[name] += n
+
+
+def counter(name):
+    """A host counter's running total since import."""
+    return _COUNTS.get(name, 0)
+
+
+class Capture:
+    """The counts made while the scope is open (module docstring), e.g.
+    during a CUDA graph capture, whose calls run at each replay."""
+
+    def __init__(self):
+        self.counts = defaultdict(int)
+        self._outer = None
+
+    def __enter__(self):
+        global _into
+        self._outer, _into = _into, self.counts
+        return self
+
+    def __exit__(self, *exc):
+        global _into
+        _into = self._outer
+        return False
+
+    def replay(self):
+        """Adds the record, as the calls it was made by would have."""
+        for name, n in self.counts.items():
+            count(name, n)
 
 
 def count_device(name, t):

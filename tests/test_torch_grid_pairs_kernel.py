@@ -232,7 +232,7 @@ def test_counters_under_tracing_on_the_cpu():
     call = ("fused", [x, sv, se, st, dbc, disp, gap], {})
     rows = sum(int(f.n.sum()) for f in parts(call)[0])
     off = SH.fused_candidates(x, sv, se, st, dbc, disp, gap)
-    launches = SH.grid_pairs.launches
+    launches = obs.counter("grid_pairs.launches")
     obs.set_tracing(True)
     try:
         on = SH.fused_candidates(x, sv, se, st, dbc, disp, gap)
@@ -246,7 +246,7 @@ def test_counters_under_tracing_on_the_cpu():
     assert c["broadphase.rows"] == rows + et_rows > 0
     assert c["broadphase.kept"] == sum(on[k][1] for k in on) + et[1]
     assert c.get("broadphase.kernel_calls", 0) == 0
-    assert SH.grid_pairs.launches == launches
+    assert obs.counter("grid_pairs.launches") == launches
 
 
 # --- the card ----------------------------------------------------------------
@@ -328,9 +328,10 @@ def test_kernel_matches_plain_where_a_family_keeps_nothing(cuda_device, dtype, l
     call = ("fused", list(args), {})
     rec = _against_plain(call, dtype, f"two triangles {layout}")
     assert rec["kept"][0] == 0
-    launches = SH.grid_pairs.launches
+    launches = obs.counter("grid_pairs.launches")
     got = SH.fused_candidates(*args)
     torch.cuda.synchronize()
     # a count pass per family, a write pass only where the grid keeps a pair
-    assert SH.grid_pairs.launches - launches == 3 + sum(n > 0 for _, n in got.values())
+    assert (obs.counter("grid_pairs.launches") - launches
+            == 3 + sum(n > 0 for _, n in got.values()))
     assert_same(got, dense(*args))

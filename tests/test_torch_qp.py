@@ -24,6 +24,7 @@ from ipc_tpu.qp.constraints import FAMILY_OF_TYPE as JAX_TYPES
 from ipc_tpu.qp.constraints import constraint_c_grad as jax_c_grad
 from ipc_tpu_torch.qp.admm import admm_qp
 from ipc_tpu_torch.qp.constraints import FAMILY_OF_TYPE, constraint_c_grad
+from ipc_tpu_torch.utils import observability as obs
 
 
 def _stencils(seed=0, K=64):
@@ -96,11 +97,11 @@ def _solve_port(P, q, rows, vids, valid, l, **kw):
     """The port's (x, lam, k) of the same problem."""
     V = q.shape[0]
     Pt = torch.as_tensor(P)
-    counters = {}
+    reads0, pcg0 = obs.host_reads(), obs.counter("admm.pcg_iters")
     x, lam, k = admm_qp(lambda v: (Pt @ v.reshape(-1)).reshape(V, 3), torch.as_tensor(q),
                         torch.as_tensor(rows), torch.as_tensor(vids), torch.as_tensor(valid),
-                        torch.as_tensor(l), counters=counters, **kw)
-    assert counters["syncs"] > k and counters["pcg"] > 0
+                        torch.as_tensor(l), **kw)
+    assert obs.host_reads() - reads0 > k and obs.counter("admm.pcg_iters") > pcg0
     return x.numpy(), lam.numpy(), k
 
 
@@ -195,21 +196,25 @@ def test_buffered_pcg_is_pcg_on_the_cpu(x0_seed):
     P, q = _spd(12, 1)
     Pt = torch.as_tensor(P)
     d = torch.as_tensor(1.0 / np.diag(P).reshape(12, 3))
-    counters = {"operator": 0}
+    applied = [0]
 
     def op(v):
-        counters["operator"] += 1
+        applied[0] += 1
         return (Pt @ v.reshape(-1)).reshape(12, 3)
+
+    def residual_tests():
+        return obs.host_reads_by_site().get("pcg.residual", 0)
 
     b = torch.as_tensor(q)
     x0 = (torch.zeros_like(b) if x0_seed is None else
           torch.as_tensor(np.random.default_rng(x0_seed).standard_normal((12, 3))))
+    reads0 = residual_tests()
     x_e, k_e, _ = pcg(op, b, lambda r: d * r, x0=x0, tol=1e-9, maxiter=100)
-    assert counters["operator"] == 1 + k_e > 2
-    g = GraphedPCG(op, lambda r: d * r, b, counters)
+    assert applied[0] == 1 + k_e > 2 and residual_tests() - reads0 == k_e + 1
+    g = GraphedPCG(op, lambda r: d * r, b)
     for i in range(2):
-        counters.update(operator=0, syncs=0)
+        applied[0], reads0 = 0, residual_tests()
         g.state[0].copy_(x0)
         g.start(b, 1e-9, *g.state)
         assert g.iterate(100) == k_e and torch.equal(g.state[0], x_e), i
-        assert counters == {"operator": 1 + k_e, "syncs": k_e + 1}
+        assert (applied[0], residual_tests() - reads0) == (1 + k_e, k_e + 1), i

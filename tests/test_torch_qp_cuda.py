@@ -29,10 +29,10 @@ from ipc_tpu_torch.contact.halfspace import HalfSpace, HalfSpaceParams
 from ipc_tpu_torch.convert import state_from_numpy, state_to_numpy
 from ipc_tpu_torch.mesh import build_mesh
 from ipc_tpu_torch.models.primitives import cube
-from ipc_tpu_torch.ops.tet_hv import tet_hv
 from ipc_tpu_torch.qp.stepper import QPStepper
 from ipc_tpu_torch.solver.pcg import GraphedPCG, pcg
 from ipc_tpu_torch.timestepper import SimParams
+from ipc_tpu_torch.utils import observability as obs
 
 
 @pytest.fixture
@@ -53,7 +53,7 @@ def _drop(device, dtype=torch.float64):
 def test_sqp_steps_on_the_card_match_the_cpu(cuda_device):
     cpu, card = _drop("cpu"), _drop(cuda_device)
     s = cpu.initial_state()
-    tet_hv.launches = 0
+    n0 = obs.counter("tet_hv.launches")
     for i in range(2):
         pre = state_to_numpy(s)
         s, ref = cpu.step(state_from_numpy(pre, "cpu", torch.float64))
@@ -62,7 +62,7 @@ def test_sqp_steps_on_the_card_match_the_cpu(cuda_device):
             ref.iters, ref.pcg_iters, ref.n_constraints), i
         np.testing.assert_allclose(got.x.cpu().numpy(), s.x.numpy(), rtol=0, atol=1e-9)
     assert 200 in ref.pcg_iters  # ADMM's cap
-    assert tet_hv.launches == card.operator_applications > 0
+    assert obs.counter("tet_hv.launches") - n0 == card.operator_applications > 0
 
 
 @pytest.mark.cuda
@@ -76,15 +76,17 @@ def test_graphed_pcg_is_pcg_bitwise(cuda_device, dtype):
     b = torch.as_tensor(rng.standard_normal(tuple(x.shape)), device=cuda_device).to(dtype)
     x0 = torch.zeros_like(b)
     x_e, k_e, _ = pcg(P, b, M, x0=x0, tol=1e-6, maxiter=500)
-    n0, ops0 = tet_hv.launches, st.operator_applications
-    g = GraphedPCG(P, M, b, st._counters)
+    n0, ops0 = obs.counter("tet_hv.launches"), obs.counter("operator.applications")
+    g = GraphedPCG(P, M, b)
     for _ in range(2):
         g.state[0].copy_(x0)
         g.start(b, 1e-6, *g.state)
         k_g = g.iterate(500)
         assert k_g == k_e > 1 and torch.equal(g.state[0], x_e)
-    assert sum(g.body.kernels) == 1 and tet_hv.launches - n0 == st.operator_applications - ops0
-    assert st.operator_applications - ops0 == 2 * (1 + k_e) + 1  # set-ups, replays, warm-up
+    assert g.body.capture.counts == {"operator.applications": 1, "tet_hv.launches": 1}
+    ops = obs.counter("operator.applications") - ops0
+    assert obs.counter("tet_hv.launches") - n0 == ops
+    assert ops == 2 * (1 + k_e) + 1  # set-ups, replays, warm-up
 
 
 @pytest.mark.cuda
@@ -93,10 +95,10 @@ def test_graph_replays_count_the_device_launches(cuda_device):
 
     st = _drop(cuda_device, torch.float32)
     s, _ = st.step(st.initial_state())
-    n0, ops0 = tet_hv.launches, st.operator_applications
+    n0, ops0 = obs.counter("tet_hv.launches"), st.operator_applications
     (_, stats), n = device_launches(lambda: st.step(s), cuda_device)
     assert 200 in stats.pcg_iters  # ADMM ran its graphs 200 times in one call
-    assert n == tet_hv.launches - n0 == st.operator_applications - ops0 > 200
+    assert n == obs.counter("tet_hv.launches") - n0 == st.operator_applications - ops0 > 200
 
 
 @pytest.mark.cuda

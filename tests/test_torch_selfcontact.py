@@ -30,9 +30,15 @@ from ipc_tpu_torch.ops.compensated import df_to_float
 from ipc_tpu_torch.ops.scatter import make_dynamic_gather_sum
 from ipc_tpu_torch.scenes import build_scene
 from ipc_tpu_torch.solver import coarse as TCO
+from ipc_tpu_torch.utils import observability as obs
 
 RTOL = 1e-10
 KAPPA = 1.3e7
+
+
+def _tables():
+    """Gather-sum tables built so far: their host reads."""
+    return obs.host_reads_by_site().get("gather_sum.table", 0)
 
 
 def close(got, ref, rtol=RTOL):
@@ -173,8 +179,9 @@ def test_coarse_assembly_with_pair_families(scene, active):
     j_asm, _ = JCO.make_coarse_assembler(agg, C, jmesh.dbc_mask, jnp.float64, tets=tets)
     t_asm, _ = TCO.make_coarse_assembler(agg, C, mesh.dbc_mask, torch.float64, tets=tets)
     Aj = j_asm(jmesh.mass, [(vj, Hj), (fj["vids"], Fj)])
+    tables0 = _tables()
     At = t_asm(mesh.mass, [(vt, Ht), (ft["vids"], Ft)])
-    assert t_asm.host_syncs == 2  # one table per pair family
+    assert _tables() - tables0 == 2  # one table per pair family
     close(At, Aj, rtol=1e-9)  # a dense (3C,3C) inverse, as in the slice-1 test
 
 
@@ -184,13 +191,15 @@ def test_dynamic_gather_sum_matches_index_add(shape):
     n_out, N = 50, 400
     ids = torch.as_tensor(rng.integers(0, n_out - 10, size=N))  # 10 rows untouched
     vals = torch.as_tensor(rng.normal(size=(N,) + shape))
+    tables0 = _tables()
     gs = make_dynamic_gather_sum(ids, n_out)
+    assert _tables() - tables0 == 1
     want = torch.zeros((n_out,) + shape, dtype=torch.float64).index_add_(0, ids, vals)
     got = gs(vals)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-13, atol=1e-13)
     untouched = ~torch.isin(torch.arange(n_out), ids)
     assert untouched.any() and torch.equal(got[untouched], torch.zeros_like(got[untouched]))
-    assert torch.equal(gs.rows, torch.unique(ids)) and gs.host_syncs == 1
+    assert torch.equal(gs.rows, torch.unique(ids))
     # ascending position order within each segment: a row's sum is the
     # left-to-right sum of its addends
     for r in gs.rows[:5].tolist():
@@ -198,8 +207,9 @@ def test_dynamic_gather_sum_matches_index_add(shape):
         for v in vals[ids == r]:
             acc = acc + v
         np.testing.assert_allclose(got[r].numpy(), acc.numpy(), rtol=1e-14, atol=1e-15)
+    tables0 = _tables()
     empty = make_dynamic_gather_sum(torch.zeros((0,), dtype=torch.int64), n_out)
-    assert empty.host_syncs == 0
+    assert _tables() == tables0
     assert torch.equal(empty(torch.zeros((0,) + shape, dtype=torch.float64)),
                        torch.zeros((n_out,) + shape, dtype=torch.float64))
 

@@ -29,6 +29,7 @@ from ipc_tpu_torch.models.primitives import box_grid
 from ipc_tpu_torch.ops.tet_hv import (_launch_args, device_launches, make_tet_hv_table,
                                       tet_hv, tet_hv_reference, tet_rows_reference)
 from ipc_tpu_torch.scenes import build_scene
+from ipc_tpu_torch.utils import observability as obs
 
 # tet topologies for the kernel cases: (tets, n_verts) builders
 SHAPES = {
@@ -96,10 +97,10 @@ def test_reference_matches_jax_route():
 
 def test_cpu_wrapper_takes_plain_version():
     _, _, _, table, Ht, vt = _problem(2, torch.float64, seed=1)
-    before = tet_hv.launches
+    before = obs.counter("tet_hv.launches")
     out = tet_hv(Ht, vt, table)
     assert torch.equal(out, tet_hv_reference(Ht, table.tets, vt, table.gsum))
-    assert tet_hv.launches == before  # only kernel launches count
+    assert obs.counter("tet_hv.launches") == before  # only kernel launches count
 
 
 def test_table_layout():
@@ -193,11 +194,11 @@ def cuda_device():
 def test_kernel_matches_plain(cuda_device, shape, dtype, rel_tol):
     _, _, _, table, Ht, vt = _problem(None, dtype, seed=2, device=cuda_device,
                                       extra_vertex=True, topology=SHAPES[shape]())
-    before = tet_hv.launches
+    before = obs.counter("tet_hv.launches")
     out = tet_hv(Ht, vt, table)
     again = tet_hv(Ht, vt, table)
     torch.cuda.synchronize()
-    assert tet_hv.launches == before + 2
+    assert obs.counter("tet_hv.launches") == before + 2
     plain = tet_hv_reference(Ht, table.tets, vt, table.gsum)
     err = (out - plain).abs().max().item()
     assert err <= rel_tol * plain.abs().max().item()

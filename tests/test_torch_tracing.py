@@ -15,6 +15,9 @@
 * Under a CPU-only torch.profiler session each span starts within 1 ms of
   its record_function range.
 * With tracing off, `span()` records nothing and returns one shared no-op.
+* A `Capture` scope keeps the counts made in it out of the totals (and of
+  the recording) until each `replay()` adds them, into an enclosing scope's
+  record when one is open.
 """
 
 import dataclasses
@@ -225,6 +228,24 @@ def test_host_read_values_and_counts():
     assert obs.host_reads() - n0 == 4
     assert {k: sites[k] - sites0.get(k, 0) for k in ("t.one", "t.two", "t.copy")} == {
         "t.one": 1, "t.two": 2, "t.copy": 1}
+
+
+def test_capture_scope_holds_counts_until_replayed():
+    n0 = obs.counter("t.captured")
+    obs.set_tracing(True)
+    with obs.Capture() as cap:
+        obs.count("t.captured", 3)
+        obs.count("t.captured")
+    assert obs.counter("t.captured") == n0 and cap.counts == {"t.captured": 4}
+    obs.count("t.captured")  # the scope is closed: into the totals
+    cap.replay()
+    cap.replay()
+    assert obs.counter("t.captured") == n0 + 9
+    with obs.Capture() as outer:  # a replay inside a scope adds to its record
+        cap.replay()
+    obs.set_tracing(False)
+    assert obs.counter("t.captured") == n0 + 9 and outer.counts == {"t.captured": 4}
+    assert obs.collect()["counters"] == {"t.captured": 9}
 
 
 def test_timers_section_is_a_span():
