@@ -39,7 +39,22 @@ and ends the run with a non-zero exit code (nothing is caught):
      pass) per family of each call and one more (the write pass) per
      family that keeps a grid pair, and one host read per call;
      the walk's device time, the whole call's wall time through the
-     kernel and through the plain version, and the bytes read once;
+     kernel and through the plain version, and the bytes read once. Then
+     the active pairs' kernel (csrc/pair_terms.cu) against its plain
+     version (vmap(grad / hessian), make_psd) on the card
+     (ipc_tpu_torch/pair_timing.py): the largest active set of the blocks
+     in the landing's steps 8-9 and, where the blocks get none, of the
+     energy in the twist's steps 0-3 (n = 100), float32 and float64,
+     every stencil's dType
+     code equal and, in float64, energies, gradient rows and projected
+     blocks within 1e-10 of each stencil's norm; in float32, at the
+     median, 99th percentile and largest over the stencils, the kernel's
+     distance from the float64 plain version at most twice the float32
+     plain version's plus eps (pair_timing.f32_rule); over those steps
+     pairs.kernel_calls == pairs.calls; each launch's device time, the
+     bytes and the flops of one eigendecomposition a block, and the whole
+     blocks call's wall time through the kernel and through the plain
+     version;
   4. ground path: build_scene(n_cells=20, float32, "cuda") -> make_step for
      3 steps (96,000 tets; ground contact and friction, no self-contact).
      Launches are counted from just before: the Hv kernel must have
@@ -211,17 +226,22 @@ first, alone on the card; then the references 5, 9 and 11, with 20's sweep
 in one child process, 14 in another and 16, 17 and 19 in a third beside
 them.
 
-The line before the last is the kernels record: tet_hv, accd and
-grid_pairs, each with its launches over the contact, twist, driver, host,
-QP, sharded and battery paths (the counters `tet_hv.launches`,
-`ccd.kernel_calls` and `grid_pairs.launches` of utils/observability over
+The line before the last is the kernels record: tet_hv, accd, grid_pairs
+and pair_terms, each with its launches over the contact, twist, driver,
+host, QP, sharded and battery paths (the counters `tet_hv.launches`,
+`ccd.kernel_calls`, `grid_pairs.launches` and `pairs.kernel_calls` of
+utils/observability over
 each path; the sharded one summed over its ranks; repeats and restarts
-not counted; every path must launch all three), tet_hv timed
+not counted; every path must launch the first three, pair_terms runs
+where a path's steps have active pairs), tet_hv timed
 at the driver shape, accd at the landing's candidate sets in float32 (its
 ms, plain_ms and bound_ms the two families' sum, its n per family),
 grid_pairs at the landing's largest grid call in float32 (ms the walk's
 device time, call_ms and plain_ms the whole call's through the kernel and
-the plain version, rows walked and pairs kept), the last line
+the plain version, rows walked and pairs kept), pair_terms at the
+landing's largest active set in float32 (ms the blocks launches' device
+time over both families, call_ms and plain_ms the whole blocks call's,
+bound the larger of bytes and flops), the last line
 {"ok": true, "device": {...}}. Without a CUDA device the run fails in
 phase 1 and prints neither.
 
@@ -248,7 +268,7 @@ def check(cond, what):
 
 # the counters of the hand-written kernels' launches (utils/observability)
 KERNEL_COUNTERS = {"tet_hv": "tet_hv.launches", "accd": "ccd.kernel_calls",
-                   "grid_pairs": "grid_pairs.launches"}
+                   "grid_pairs": "grid_pairs.launches", "pair_terms": "pairs.kernel_calls"}
 
 
 def _launches(since=None):
@@ -262,7 +282,7 @@ def _launches(since=None):
 def _path_launches(tag, launches):
     """`launches` of one path, ACCD and the grid walk checked to have run."""
     print(f"[{tag}] accd launches={launches['accd']} grid_pairs launches="
-          f"{launches['grid_pairs']}", flush=True)
+          f"{launches['grid_pairs']} pair_terms launches={launches['pair_terms']}", flush=True)
     check(launches["accd"] > 0, f"ACCD launched on the {tag} path")
     check(launches["grid_pairs"] > 0, f"the grid walk kernel launched on the {tag} path")
     return launches
@@ -319,8 +339,9 @@ def phase_kernel_vs_plain(device):
             check(r["library_err"] <= r["limit"], f"{what}: the yardstick computes the same map")
             check(r["tetless_zero"] in (None, True), f"{what}: tet-less rows are exact zeros")
             records[(scene, n_cells, r["dtype"])] = r
-    return records, accd_vs_plain(device, ("twist", "boxes")), grid_vs_plain(
-        device, ("twist100", "boxes"))
+    return (records, accd_vs_plain(device, ("twist", "boxes")),
+            grid_vs_plain(device, ("twist100", "boxes")),
+            pairs_vs_plain(device, ("twist100", "boxes")))
 
 
 ACCD_LIMIT = {"float32": 1e-5, "float64": 1e-12}
@@ -394,6 +415,63 @@ def grid_vs_plain(device, scenes):
             check(r["equal"], f"grid_pairs {name} {scene}: the plain version's pairs, "
                               f"element for element")
             records[(scene, name)] = r
+    return records
+
+
+PAIRS_LIMIT_F64 = 1e-10
+
+
+def pairs_vs_plain(device, scenes):
+    """The active pairs' kernel against its plain version on the card (module
+    docstring, phase 3) on the largest active set of the blocks in the steps
+    of each of `scenes` (pair_timing.SCENES; of any entry point where the
+    blocks get none).
+    Returns {(scene, family, dtype): record of pair_timing.measure}, with
+    the whole blocks call's wall ms through the kernel and the plain version
+    under (scene, "call", dtype)."""
+    import torch
+
+    from ipc_tpu_torch.contact.pipeline import ActiveSet
+    from ipc_tpu_torch.pair_timing import call_ms, largest, measure, scene_sets
+
+    records = {}
+    for scene in scenes:
+        calls, counters, dHat = scene_sets(scene, device)
+        print(f"[kernel] pair_terms {scene} steps: {len(calls)} calls, counters "
+              f"{json.dumps(counters)}")
+        check(counters["pairs.kernel_calls"] == counters["pairs.calls"] > 0,
+              f"pair_terms {scene}: one kernel launch per family call with pairs")
+        x, act = largest(calls, "hessian_blocks_from_active")
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).replace("torch.", "")
+            xd, epsd = x.to(dtype), act.eps_e.to(dtype)
+            for kind, vids, eps in (("pt", act.vids_p, None), ("ee", act.vids_e, epsd)):
+                r = measure(kind, xd, vids, eps, dHat)
+                print(f"[kernel] pair_terms_{kind} {scene} {name}: n={r['n']} code_equal="
+                      f"{r['code_equal']} energy_err={r['energy_err']:.3e} grad_err="
+                      f"{r['grad_err']:.3e} blocks_err={r['blocks_err']:.3e} sweeps_mean="
+                      f"{r['sweeps_mean']:.3f} sweeps_max={r['sweeps_max']} energy_ms="
+                      f"{r['energy_ms']:.5f} grad_ms={r['grad_ms']:.5f} blocks_ms="
+                      f"{r['blocks_ms']:.5f} bytes={r['bytes']} bytes_us={r['bytes_us']:.3f} "
+                      f"flops={r['flops']:.4g} flops_us={r['flops_us']:.3f}", flush=True)
+                what = f"pair_terms_{kind} {name} {scene}"
+                check(r["code_equal"] == 1.0, f"{what}: every dType code the plain version's")
+                if dtype == torch.float64:
+                    check(max(r["energy_err"], r["grad_err"], r["blocks_err"])
+                          <= PAIRS_LIMIT_F64, f"{what} within {PAIRS_LIMIT_F64:.0e}")
+                else:
+                    print(f"[kernel] pair_terms_{kind} {scene} float32 rule: kept "
+                          f"{r['f32_kept']} err vs float64 (kernel, plain) at q50/q99/max "
+                          f"{r['f32_err']}", flush=True)
+                    check(r["f32_ok"], f"{what}: within twice the float32 plain version's "
+                          "distance from float64, plus eps")
+                records[(scene, kind, name)] = r
+            actd = ActiveSet(vids_p=act.vids_p, vids_e=act.vids_e, eps_e=epsd,
+                             cnt_pt=act.cnt_pt, cnt_ee=act.cnt_ee)
+            k_ms, p_ms = call_ms(xd, actd, dHat)
+            print(f"[kernel] pair_terms {scene} {name}: whole blocks call {k_ms:.3f} ms, "
+                  f"plain {p_ms:.3f} ms", flush=True)
+            records[(scene, "call", name)] = dict(kernel_ms=k_ms, plain_ms=p_ms)
     return records
 
 
@@ -1720,7 +1798,7 @@ def phase_sharded_path(device, lead, ranks=2):
     ranks_rows = [r for o in outs for r in o["rows"]]
     return _path_launches("sharded", {k: sum(r[f] for r in ranks_rows) for k, f in (
         ("tet_hv", "tet_hv_launches"), ("accd", "accd_launches"),
-        ("grid_pairs", "grid_launches"))})
+        ("grid_pairs", "grid_launches"), ("pair_terms", "pair_launches"))})
 
 
 def _sharded_cpu_case(patterns=6):
@@ -2036,14 +2114,14 @@ def main(argv=None):
     child = None
     try:
         # the timed phases first, alone on the card
-        launches = {"tet_hv": 0, "accd": 0, "grid_pairs": 0}
+        launches = {"tet_hv": 0, "accd": 0, "grid_pairs": 0, "pair_terms": 0}
 
         def add(counts):
             for k, v in (counts or {}).items():
                 launches[k] += v
 
-        records, accd, grid = (run("kernel_vs_plain", phase_kernel_vs_plain, device)
-                               or (None, None, None))
+        records, accd, grid, pairs = (run("kernel_vs_plain", phase_kernel_vs_plain, device)
+                                      or (None, None, None, None))
         run("ground_path", phase_ground_path, device)
         run("broadphase", phase_broadphase, device)
         contact = run("contact_path", phase_contact_path, device)
@@ -2092,9 +2170,13 @@ def main(argv=None):
         records = {("driver", 20, "float32"): measure(20, torch.float32, device, "driver")}
         accd = accd_vs_plain(device, ("boxes",))
         grid = grid_vs_plain(device, ("boxes",))
+        pairs = pairs_vs_plain(device, ("boxes",))
     r = records[("driver", 20, "float32")]  # the driver path's shape and dtype
     a = [accd[("boxes", kind, "float32")] for kind in ("pt", "ee")]  # the landing's sets
     g = grid[("boxes", "float32")]  # the landing's largest grid call
+    pr = [pairs[("boxes", kind, "float32")] for kind in ("pt", "ee")]  # the landing's set
+    pr_bound_us = sum(max(x["bytes_us"], x["flops_us"]) for x in pr)
+    pr_ms = sum(x["blocks_ms"] for x in pr)
     bound_us = sum(x["bound_us"] for x in a)
     ms = sum(x["kernel_ms"] for x in a)
     print(json.dumps({"kernels": [dict(
@@ -2117,6 +2199,17 @@ def main(argv=None):
         call_ms=g["call_ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_us"] / 1e3,
         bound_by="bytes", library_ms=None, bound_us=g["bound_us"],
         share_of_bound=g["bound_us"] / (1e3 * g["walk_ms"]),
+    ), dict(
+        name="pair_terms", route="cuda", source="ipc_tpu_torch/csrc/pair_terms.cu",
+        replaces="ipc_tpu/contact/selfcollision.py (jax.hessian) + ipc_tpu/ops/spd.py",
+        launches=launches["pair_terms"], n={"pt": pr[0]["n"], "ee": pr[1]["n"]},
+        max_abs_err=None, max_rel_err=max(max(x["energy_err"], x["grad_err"], x["blocks_err"])
+                                          for x in pr),
+        ms=pr_ms, call_ms=pairs[("boxes", "call", "float32")]["kernel_ms"],
+        plain_ms=pairs[("boxes", "call", "float32")]["plain_ms"], bound_ms=pr_bound_us / 1e3,
+        bound_by="flops" if pr[0]["flops_us"] + pr[1]["flops_us"] > sum(
+            x["bytes_us"] for x in pr) else "bytes", library_ms=None, bound_us=pr_bound_us,
+        share_of_bound=pr_bound_us / (1e3 * pr_ms),
     )]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

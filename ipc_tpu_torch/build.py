@@ -96,5 +96,13 @@ def load_kernels():
                 # stream
                 fn.argtypes = [ptr] * 17 + [i64, i64, f64, i32] + [ptr] * 4
                 fn.restype = i32
+        for kind in ("pt", "ee"):
+            for what in ("energy", "grad", "blocks"):
+                for dt in ("f32", "f64"):
+                    fn = getattr(lib, f"ipc_pairs_{kind}_{what}_{dt}")
+                    # x, vids, eps (or null), n, dHat, kappa_ptr (or null), kappa, project,
+                    # out, code (or null), sweeps (or null), stream
+                    fn.argtypes = [ptr, ptr, ptr, i32, f64, ptr, f64, i32, ptr, ptr, ptr, ptr]
+                    fn.restype = i32
         _lib = lib
     return _lib

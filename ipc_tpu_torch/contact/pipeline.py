@@ -11,7 +11,9 @@ utils/observability's `host_read`, which counts it. The layers are spans
 there: `broadphase` (build_candidates, has_intersection's query),
 `active_set`, `pairs` (the active pairs' energy, gradient and blocks, the
 friction capture) and `ccd` with `accd_pt` / `accd_ee` (or `ti_pt` /
-`ti_ee`) inside.
+`ti_ee`) inside. The active pairs' energy, gradient and blocks go through
+contact/pair_terms.py: one kernel launch per family on the card, the plain
+per-pair functions of contact/selfcollision.py elsewhere.
 
 `ccd_method` picks ACCD ("accd") or, with "ti", the per-pair maximum of
 the interval CCD and ACCD (both conservative, so their maximum is too).
@@ -56,6 +58,7 @@ import numpy as np
 import torch
 
 from ipc_tpu_torch.contact import broadphase as BP
+from ipc_tpu_torch.contact import pair_terms as PAIRS
 from ipc_tpu_torch.contact import selfcollision as SC
 from ipc_tpu_torch.contact import spatial_hash as SH
 from ipc_tpu_torch.contact.ccd import accd_ee, accd_pt, ti_ee, ti_pt
@@ -63,7 +66,6 @@ from ipc_tpu_torch.contact.intersection import any_edge_tri_intersection
 from ipc_tpu_torch.ops.compensated import df_add, df_scale, df_sum
 from ipc_tpu_torch.ops.distance import edge_edge_dist2, eps_x_ee, point_triangle_dist2
 from ipc_tpu_torch.ops.scatter import make_dynamic_gather_sum
-from ipc_tpu_torch.ops.spd import make_psd
 from ipc_tpu_torch.parallel import spmd
 from ipc_tpu_torch.parallel.sharding import row_range
 from ipc_tpu_torch.utils.observability import host_read, span
@@ -307,8 +309,7 @@ class SelfContact:
         """Barrier energy of an active set; df=True gives a compensated
         (hi, lo) pair (ops/compensated.py)."""
         with span("pairs"):
-            e_pt = SC.pt_pair_energy(x[act.vids_p], dHat, self.tab)
-            e_ee = SC.ee_pair_energy(x[act.vids_e], act.eps_e, dHat, self.tab)
+            e_pt, e_ee = PAIRS.energies(x, act, dHat, self.tab)
             if df:
                 return df_scale(df_add(df_sum(e_pt), df_sum(e_ee)), kappa)
             return kappa * (e_pt.sum() + e_ee.sum())
@@ -316,21 +317,15 @@ class SelfContact:
     def gradient_active(self, x, act, kappa, dHat):
         """(V,3) barrier gradient of an active set."""
         with span("pairs"):
-            g_pt = SC.pt_pair_grad(x[act.vids_p], dHat, self.tab)
-            g_ee = SC.ee_pair_grad(x[act.vids_e], act.eps_e, dHat, self.tab)
-            rows = torch.cat([kappa * g_pt.reshape(-1, 3), kappa * g_ee.reshape(-1, 3)])
-            return self.vert_sum(act)(rows)
+            return self.vert_sum(act)(PAIRS.gradient_rows(x, act, kappa, dHat, self.tab))
 
     def hessian_blocks_from_active(self, x, act, kappa, dHat, project=True):
         """SPD 12x12 blocks of an active set: (vids (Ca,4), H (Ca,12,12),
         (cnt_pt, cnt_ee))."""
         with span("pairs"):
-            H = torch.cat([SC.pt_pair_hess(x[act.vids_p], dHat, self.tab),
-                           SC.ee_pair_hess(x[act.vids_e], act.eps_e, dHat, self.tab)])
-            if project and H.shape[0]:
-                H = make_psd(H)
+            H = PAIRS.blocks(x, act, kappa, dHat, self.tab, project)
             vids = torch.cat([act.vids_p, act.vids_e])
-            return vids, kappa * H, (act.cnt_pt, act.cnt_ee)
+            return vids, H, (act.cnt_pt, act.cnt_ee)
 
     def hessian_blocks_active(self, x, cand, kappa, dHat, project=True):
         act = self.active_set(x, cand, dHat)

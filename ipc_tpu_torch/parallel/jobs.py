@@ -48,7 +48,8 @@ def steps(st, step, s, n):
     (module docstring)."""
     from ipc_tpu_torch.utils.observability import counter
 
-    launches = ("tet_hv.launches", "ccd.kernel_calls", "grid_pairs.launches")
+    launches = ("tet_hv.launches", "ccd.kernel_calls", "grid_pairs.launches",
+                "pairs.kernel_calls")
     rows = []
     for _ in range(n):
         ops0, coll0 = step.operator_applications, step.collectives
@@ -58,12 +59,12 @@ def steps(st, step, s, n):
         s, stats = step(s)
         _sync(st.device)
         wall = time.perf_counter() - t0
-        hv, accd, grid = (counter(k) - k0 for k, k0 in zip(launches, launches0))
+        hv, accd, grid, pairs = (counter(k) - k0 for k, k0 in zip(launches, launches0))
         hit, _ = st.sc.has_intersection(s.x) if st.sc is not None else (False, 0)
         rows.append(dict(
             stats=dataclasses.asdict(stats), wall_s=wall,
             operator_applications=step.operator_applications - ops0,
-            tet_hv_launches=hv, accd_launches=accd, grid_launches=grid,
+            tet_hv_launches=hv, accd_launches=accd, grid_launches=grid, pair_launches=pairs,
             collectives=step.collectives - coll0, rank_counts=dict(step.rank_counts or {}),
             finite=bool(torch.isfinite(s.x).all() and torch.isfinite(s.v).all()),
             ymin=s.x[:, 1].min().item(), intersection=bool(hit), x=s.x.cpu().numpy()))
